@@ -3,13 +3,18 @@
 Same field names and defaults as neurosync_trainer_lite_tpu/config.py, so a
 config dict moves between the two packages unchanged. The serving path reads
 the geometry (sr, input_dim, output_dim, frame_size, overlap, hidden_dim,
-n_layers, num_heads), use_amp and attention_impl. The training and TPU knobs
-(prng_impl, remat*, unroll_residents, async_checkpoint, dp/tp, ...) are kept
-for that compatibility and are read by no module of this slice.
+n_layers, num_heads), use_amp and attention_impl. The training step
+(training/step.py) also reads dropout, learning_rate, weight_decay, n_epochs,
+warmup_epochs, grad_clip, delta, w1-w4, zero_penalty_weight, loss_variant,
+smoothness_annealing and grad_accum_steps, and refuses remat=True, tp != 1
+and dp > 1, which are not ported yet. The other knobs (the data loop's,
+prng_impl, auto_remat, unroll_residents, async_checkpoint, ...) are kept for
+that compatibility and are read by no module of the port yet.
 
 attention_impl on the card: 'pallas' selects the fused RoPE-attention CUDA
-kernel (ops/fused_attention.py), 'auto' and 'xla' the composed path whose
-RoPE runs through the RoPE CUDA kernel (ops/rope_kernel.py).
+kernels (ops/fused_attention.py; in training only where attention dropout
+is off, as in JAX), 'auto' and 'xla' the composed path whose RoPE runs
+through the RoPE CUDA kernel (ops/rope_kernel.py).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The audio→blendshape Seq2Seq transformer as nn.Modules (eval path).
+"""The audio→blendshape Seq2Seq transformer as nn.Modules, eval and training.
 
 Port of neurosync_trainer_lite_tpu/models/seq2seq.py. Module and parameter
 names are the reference checkpoint's state-dict keys, so a reference
@@ -9,11 +9,20 @@ names are the reference checkpoint's state-dict keys, so a reference
 - Decoder: its input stream IS the encoder output, which is also the
   cross-attention memory → global RoPE → n_layers of [self-attn,
   cross-attn, FFN, all post-LN] → LayerNorm → Linear(output_dim).
+- Dropout sits where the reference puts it, including the double dropout
+  on attention outputs (inside the attention and again in the layer).
 
 Parameters are fp32; with cfg.use_amp the compute runs in bf16 with fp32
 accumulation, LayerNorm in fp32. A Python loop over the layers takes the
-place of lax.scan. Dropout is the identity at eval; training waits for the
-training slice.
+place of lax.scan. In bf16, LayerNorm and the training FFN are autograd
+Functions with JAX's lean residuals and rounding points (_layer_norm_bf16,
+_ffn_lean_core); fp32 keeps plain autograd, as in JAX.
+
+Training: model.train() and a torch.Generator passed to forward turn
+dropout on; the forward draws one seed from the generator and splits it
+into per-layer and per-site seeds (ops/attention.py:split_seed) in the tree
+shape of the JAX keys. Without a generator, or in eval mode, the forward is
+the eval forward.
 """
 
 from __future__ import annotations
@@ -23,8 +32,15 @@ from torch import nn
 
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.ops.attention import (
+    _bf16_value,
     _linear,
+    _mm_f32,
+    draw_seed,
+    dropout,
+    dropout_keep,
+    dropout_mask_q,
     multi_head_attention,
+    split_or_none,
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_embed
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
@@ -54,71 +70,167 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias)
 
 
-def layer_norm(x, weight, bias, eps: float = _LN_EPS):
+class _LayerNormBf16(torch.autograd.Function):
+    """LayerNorm of bf16 x with fp32 math that keeps only x and the [..., 1]
+    fp32 mean and rsqrt for the backward, which is the complete analytic
+    derivative (through mean and variance) in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(var + _LN_EPS)
+        ctx.save_for_backward(x, mean, r, weight)
+        return ((xf - mean) * r * weight + bias).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, mean, r, weight = ctx.saved_tensors
+        y = (x.float() - mean) * r
+        df = dout.float()
+        width = df.shape[-1]
+        dweight = (df * y).reshape(-1, width).sum(0)
+        dbias = df.reshape(-1, width).sum(0)
+        dy = df * weight
+        m1 = dy.mean(dim=-1, keepdim=True)
+        m2 = (dy * y).mean(dim=-1, keepdim=True)
+        return (r * (dy - m1 - y * m2)).to(x.dtype), dweight, dbias
+
+
+def layer_norm(x, weight, bias):
     """LayerNorm over the last dim with fp32 math, rounded once to x.dtype."""
+    if x.dtype == torch.bfloat16:
+        return _LayerNormBf16.apply(x, weight.float(), bias.float())
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = (xf - mean) * torch.rsqrt(var + _LN_EPS)
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, hidden: int, num_heads: int, impl: str, device):
+    def __init__(self, hidden: int, num_heads: int, impl: str, device,
+                 rate: float = 0.0):
         super().__init__()
-        self.num_heads, self.impl = num_heads, impl
+        self.num_heads, self.impl, self.rate = num_heads, impl, rate
         self.q_linear = Linear(hidden, hidden, device)
         self.k_linear = Linear(hidden, hidden, device)
         self.v_linear = Linear(hidden, hidden, device)
         self.out_linear = Linear(hidden, hidden, device)
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, seed=None):
         return multi_head_attention(self, query, key, value,
-                                    num_heads=self.num_heads, impl=self.impl)
+                                    num_heads=self.num_heads,
+                                    dropout_rate=self.rate, seed=seed,
+                                    train=seed is not None, impl=self.impl)
+
+
+class _FfnLeanCore(torch.autograd.Function):
+    """bf16 linear → relu → dropout → linear that keeps only x and the
+    masked activation am for the backward: where kept, am > 0 ⟺ h1 > 0, and
+    dropped elements get a zero cotangent either way, so the mask is not a
+    residual. The weight gradients stay fp32 (JAX's einsums)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, keep, scale):
+        x2 = x.reshape(-1, x.shape[-1])
+        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
+        h1 = (_mm_f32(x2, w1c.t()) + b1.float()).to(x.dtype)
+        am = torch.relu(h1)
+        if keep is not None:
+            am = torch.where(keep.reshape(am.shape), am * scale, 0)
+        y = (_mm_f32(am, w2c.t()) + b2.float()).to(x.dtype)
+        ctx.save_for_backward(x2, am, w1c, w2c)
+        ctx.scale, ctx.shape = scale, x.shape
+        return y.reshape(*x.shape[:-1], w2.shape[0])
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, am, w1c, w2c = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        db2 = dy2.float().sum(0)
+        dw2 = _mm_f32(dy2.t(), am)
+        dam = _mm_f32(dy2, w2c).to(dy.dtype)
+        dh1 = torch.where(am > 0, dam * ctx.scale, 0)
+        db1 = dh1.float().sum(0)
+        dw1 = _mm_f32(dh1.t(), x2)
+        dx = _mm_f32(dh1, w1c).to(dy.dtype)
+        return dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None
 
 
 class FeedForward(nn.Module):
-    def __init__(self, hidden: int, ffn_dim: int, device):
+    def __init__(self, hidden: int, ffn_dim: int, device, rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.linear1 = Linear(hidden, ffn_dim, device)
         self.linear2 = Linear(ffn_dim, hidden, device)
 
-    def forward(self, x):
-        return self.linear2(torch.relu(self.linear1(x)))
+    def forward(self, x, seed=None):
+        """ReLU FFN with dropout after the activation. bf16 training takes
+        the lean core, whose mask is the plain path's draw (same seed, shape
+        and threshold), so both paths drop the same elements."""
+        train = seed is not None
+        if x.dtype == torch.bfloat16 and train:
+            q = dropout_mask_q(self.rate)
+            if q < 256:  # rate ≈ 1.0 drops everything: the plain path
+                keep, scale = None, 1.0
+                if q > 0:
+                    keep = dropout_keep(
+                        seed, (*x.shape[:-1], self.linear1.weight.shape[0]), q,
+                        x.device)
+                    scale = _bf16_value(256.0 / (256 - q))
+                return _FfnLeanCore.apply(
+                    x, self.linear1.weight, self.linear1.bias,
+                    self.linear2.weight, self.linear2.bias, keep, scale)
+        h = torch.relu(self.linear1(x))
+        return self.linear2(dropout(h, self.rate, seed, train))
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: Config, device):
         super().__init__()
-        H = cfg.hidden_dim
+        H, rate = cfg.hidden_dim, cfg.dropout
+        self.rate = rate
         self.self_attn = MultiHeadAttention(H, cfg.num_heads,
-                                            cfg.attention_impl, device)
-        self.ffn = FeedForward(H, cfg.ffn_dim, device)
+                                            cfg.attention_impl, device, rate)
+        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate)
         self.norm1 = LayerNorm(H, device)
         self.norm2 = LayerNorm(H, device)
 
-    def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        return self.norm2(x + self.ffn(x))
+    def forward(self, x, seed=None):
+        s_attn, s_d1, s_ffn, s_d2 = split_or_none(seed, 4)
+        train = seed is not None
+        a = self.self_attn(x, x, x, s_attn)
+        x = self.norm1(x + dropout(a, self.rate, s_d1, train))
+        f = self.ffn(x, s_ffn)
+        return self.norm2(x + dropout(f, self.rate, s_d2, train))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: Config, device):
         super().__init__()
-        H = cfg.hidden_dim
+        H, rate = cfg.hidden_dim, cfg.dropout
+        self.rate = rate
         self.self_attn = MultiHeadAttention(H, cfg.num_heads,
-                                            cfg.attention_impl, device)
+                                            cfg.attention_impl, device, rate)
         self.multihead_attn = MultiHeadAttention(H, cfg.num_heads,
-                                                 cfg.attention_impl, device)
-        self.ffn = FeedForward(H, cfg.ffn_dim, device)
+                                                 cfg.attention_impl, device,
+                                                 rate)
+        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate)
         self.norm1 = LayerNorm(H, device)
         self.norm2 = LayerNorm(H, device)
         self.norm3 = LayerNorm(H, device)
 
-    def forward(self, x, memory):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory))
-        return self.norm3(x + self.ffn(x))
+    def forward(self, x, memory, seed=None):
+        s_self, s_d1, s_cross, s_d2, s_ffn, s_d3 = split_or_none(seed, 6)
+        train = seed is not None
+        a = self.self_attn(x, x, x, s_self)
+        x = self.norm1(x + dropout(a, self.rate, s_d1, train))
+        c = self.multihead_attn(x, memory, memory, s_cross)
+        x = self.norm2(x + dropout(c, self.rate, s_d2, train))
+        f = self.ffn(x, s_ffn)
+        return self.norm3(x + dropout(f, self.rate, s_d3, train))
 
 
 class Encoder(nn.Module):
@@ -129,10 +241,11 @@ class Encoder(nn.Module):
             EncoderLayer(cfg, device) for _ in range(cfg.n_layers))
         self.layer_norm = LayerNorm(cfg.hidden_dim, device)
 
-    def forward(self, x):
+    def forward(self, x, seed=None):
         x = rope_embed(self.embedding(x))
-        for layer in self.transformer_encoder:
-            x = layer(x)
+        seeds = split_or_none(seed, len(self.transformer_encoder))
+        for layer, s in zip(self.transformer_encoder, seeds):
+            x = layer(x, s)
         return self.layer_norm(x)
 
 
@@ -144,10 +257,11 @@ class Decoder(nn.Module):
         self.fc_output = Linear(cfg.hidden_dim, cfg.output_dim, device)
         self.layer_norm = LayerNorm(cfg.hidden_dim, device)
 
-    def forward(self, encoder_outputs):
+    def forward(self, encoder_outputs, seed=None):
         x = rope_embed(encoder_outputs)
-        for layer in self.transformer_decoder:
-            x = layer(x, encoder_outputs)
+        seeds = split_or_none(seed, len(self.transformer_decoder))
+        for layer, s in zip(self.transformer_decoder, seeds):
+            x = layer(x, encoder_outputs, s)
         return self.fc_output(self.layer_norm(x)).float()
 
 
@@ -165,9 +279,14 @@ class Seq2Seq(nn.Module):
         self.encoder = Encoder(cfg, device)
         self.decoder = Decoder(cfg, device)
 
-    def forward(self, src):
+    def forward(self, src, generator: torch.Generator | None = None):
+        """In train mode with a generator, dropout is on: the forward draws
+        one seed from the generator (seq2seq_apply's rng)."""
         dtype = torch.bfloat16 if self.cfg.use_amp else torch.float32
-        return self.decoder(self.encoder(src.to(dtype)))
+        seed = (draw_seed(generator)
+                if self.training and generator is not None else None)
+        seed_enc, seed_dec = split_or_none(seed, 2)
+        return self.decoder(self.encoder(src.to(dtype), seed_enc), seed_dec)
 
 
 @torch.no_grad()

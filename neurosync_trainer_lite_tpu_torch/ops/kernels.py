@@ -40,9 +40,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = {
     "rope": {"rope_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
-    "fused_attention": {"fused_rope_attention_fwd": [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]},
+    "fused_attention": {
+        "fused_rope_attention_fwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        "fused_rope_attention_bwd": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]},
 }
 
 

@@ -49,9 +49,12 @@ def _rope_tables_np(seq_len: int, dim: int, tile: int = 1,
 @functools.lru_cache(maxsize=64)
 def _rope_tables_on(seq_len: int, dim: int, tile: int, device: torch.device):
     # the numpy tables may be float64 (numpy 2 promotion); they are cast to
-    # fp32 once, as the JAX package's rope_tables casts them
-    return tuple(torch.from_numpy(t.astype(np.float32)).to(device)
-                 for t in _rope_tables_np(seq_len, dim, tile))
+    # fp32 once, as the JAX package's rope_tables casts them. They are built
+    # as normal tensors even when the first caller runs in inference mode:
+    # a training step that follows saves them for its backward.
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(t.astype(np.float32)).to(device)
+                     for t in _rope_tables_np(seq_len, dim, tile))
 
 
 def rope_tables(seq_len: int, dim: int, device, tile: int = 1):

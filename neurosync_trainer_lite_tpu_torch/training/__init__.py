@@ -1,0 +1,19 @@
+from neurosync_trainer_lite_tpu_torch.training.optim import (
+    lr_factor,
+    make_optimizer,
+)
+from neurosync_trainer_lite_tpu_torch.training.step import (
+    TrainState,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = [
+    "make_optimizer",
+    "lr_factor",
+    "TrainState",
+    "init_train_state",
+    "make_train_step",
+    "make_eval_step",
+]

@@ -124,13 +124,17 @@ def test_linear_rounds_once_after_the_fp32_bias():
 
 
 def test_shared_memory_gate():
-    """The serving geometry (Tk=128, head_dim=64) fits; lengths or head
-    widths the kernel does not take are refused before dispatch."""
-    assert tfua.fits_smem(128, 64)
-    assert tfua.fits_smem(400, 64)
-    assert not tfua.fits_smem(2048, 64)
-    assert not tfua.fits_smem(128, 128)
-    assert not tfua.fits_smem(128, 8)
+    """The serving and training geometry (T=128, head_dim=64) fits in bf16
+    and fp32; lengths or head widths the kernels do not take are refused
+    before dispatch. The gate is the backward's budget, as the JAX
+    fits_vmem: T=400 fits the forward alone but not the backward."""
+    assert tfua.fits_smem(128, 128, 64, 2)
+    assert tfua.fits_smem(128, 128, 64, 4)
+    assert tfua.fwd_smem_bytes(400, 64) <= tfua.SMEM_BUDGET
+    assert not tfua.fits_smem(400, 400, 64, 2)
+    assert not tfua.fits_smem(2048, 2048, 64, 2)
+    assert not tfua.fits_smem(128, 128, 128, 2)
+    assert not tfua.fits_smem(128, 128, 8, 2)
 
 
 def test_unported_flash_dispatch_raises():

@@ -1,4 +1,5 @@
-"""Kernels K1 and K4 (forward) on the card, against their plain versions.
+"""Kernels K1 and K4 (forward and backward) on the card, against their
+plain versions.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
 nothing of JAX, so they run on a machine with the card alone:
@@ -8,7 +9,8 @@ nothing of JAX, so they run on a machine with the card alone:
 chip_smoke.py holds the kernels at the serving shape; these cover the edges
 it does not reach: widths that are not a multiple of a warp, several
 query tiles, cross-attention lengths, every instantiated head width, the
-autograd path and the wrappers' refusals.
+autograd paths, a small training step on the card and the wrappers'
+refusals.
 """
 
 import shutil
@@ -25,7 +27,12 @@ from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
+from neurosync_trainer_lite_tpu_torch.ops.attention import _linear
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
+from neurosync_trainer_lite_tpu_torch.training.step import (
+    init_train_state,
+    make_train_step,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,13 +103,115 @@ def test_fused_attention_kernel_matches_plain(gen, B, Tq, Tk, H, n, dtype):
         diff.max().item()
 
 
+BWD_SHAPES = [  # B, Tq, Tk, H, heads: every block loops over rows
+    (2, 200, 24, 64, 4),       # more query rows than threads
+    (3, 37, 37, 64, 4),        # head_dim 16
+    (2, 16, 24, 128, 4),       # head_dim 32, cross-attention lengths
+    (2, 128, 128, 1024, 16),   # head_dim 64, the training row
+]
+
+
+def bwd_limit(ref, dtype):
+    """The forward's bound plus 1e-4 of the largest gradient: ds = p(dp - D)
+    cancels, so a small element carries the fp32 rounding of the terms it
+    sums (about T·2^-24 of the largest)."""
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    ref = ref.float()
+    return rel * ref.abs() + 1e-4 * ref.abs().max() + 1e-6
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,n", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_backward_kernel_matches_plain(gen, B, Tq, Tk, H, n,
+                                                       dtype):
+    q = _randn(gen, B, Tq, H, dtype=dtype)
+    k = _randn(gen, B, Tk, H, dtype=dtype)
+    v = _randn(gen, B, Tk, H, dtype=dtype)
+    do = _randn(gen, B, Tq, H, dtype=dtype)
+    tables = fua.make_tables(Tq, Tk, H // n, n, "cuda")
+    scale = (H // n) ** -0.5
+    out = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n, scale)
+    torch.cuda.synchronize()
+    ref = fua.fused_rope_attention_bwd_plain(q, k, v, do, tables, n, scale)
+    for name, a, b in zip("qkv", out, ref):
+        assert a.dtype == dtype and a.shape == b.shape
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bwd_limit(b, dtype)).all()), \
+            (name, diff.max().item())
+    again = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n, scale)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # no atomics
+
+
+def test_fused_attention_autograd_runs_both_kernels(gen):
+    q, k, v = (_randn(gen, 2, 16, 64).requires_grad_(True) for _ in range(3))
+    do = _randn(gen, 2, 16, 64)
+    tables = fua.make_tables(16, 16, 16, 4, "cuda")
+    kernels.reset_launches()
+    fua.fused_rope_attention(q, k, v, tables, 4, 0.25).backward(do)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"fused_rope_attention": 1,
+                                      "fused_rope_attention_bwd": 1,
+                                      "rope_rotate": 2}
+    want = fua.fused_rope_attention_bwd_cuda(q.detach(), k.detach(),
+                                             v.detach(), do, tables, 4, 0.25)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
+
+
+def test_linear_bf16_grads_on_the_card_match_the_cpu(gen):
+    """_linear's Function on the card (torch.mm with an fp32 output) vs the
+    CPU (widened operands): the same rounding points, so one bf16 ulp of
+    the largest value (2^-7 of it) apart at most; the fp32 bias gradient
+    within 1e-5."""
+    x = _randn(gen, 64, 96, dtype=torch.bfloat16).requires_grad_(True)
+    w = (_randn(gen, 48, 96) * 0.1).requires_grad_(True)
+    b = _randn(gen, 48).requires_grad_(True)
+    dy = _randn(gen, 64, 48, dtype=torch.bfloat16)
+    _linear(x, w, b).backward(dy)
+    xc, wc, bc = (t.detach().cpu().requires_grad_(True) for t in (x, w, b))
+    y = _linear(xc, wc, bc)
+    y.backward(dy.cpu())
+    for got, want in ((x.grad, xc.grad), (w.grad, wc.grad)):
+        want = want.float()
+        assert (got.cpu().float() - want).abs().max() <= \
+            2.0 ** -7 * want.abs().max()
+    torch.testing.assert_close(b.grad.cpu(), bc.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_train_step_on_the_card_matches_the_cpu(gen, impl):
+    """fp32, dropout 0, three steps of a tiny model on the card and on the
+    CPU from the same weights: the kernels in place of the plain versions,
+    loss and grad norm within 1e-5; launch counts of one step."""
+    cfg = Config(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
+                 output_dim=7, dropout=0.0, use_amp=False,
+                 attention_impl=impl)
+    dev = init_train_state(cfg, 5, generator=gen, device="cuda")
+    cpu = init_train_state(cfg, 5, device="cpu", state_dict={
+        k: v.cpu() for k, v in dev.model.state_dict().items()})
+    step = make_train_step(cfg)
+    src, trg = _randn(gen, 4, 24, 32), _randn(gen, 4, 24, 7)
+    gd, gc = torch.Generator(device="cuda"), torch.Generator()
+    for i in range(3):
+        kernels.reset_launches()
+        _, ld, nd = step(dev, src, trg, gd)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        _, lc, nc = step(cpu, src.cpu(), trg.cpu(), gc)
+        assert float(ld) == pytest.approx(float(lc), rel=1e-5), i
+        assert float(nd) == pytest.approx(float(nc), rel=1e-5), i
+    attn = 3 * 2                       # attentions per forward at 2+2 layers
+    want = ({"rope_rotate": 2 * (2 + 2 * attn)} if impl == "auto" else
+            {"rope_rotate": 2 * 2 + 2 * attn, "fused_rope_attention": attn,
+             "fused_rope_attention_bwd": attn})
+    assert launches == want
+
+
 def test_fused_attention_refusals(gen):
-    q = _randn(gen, 1, 8, 64)
-    tables = fua.make_tables(8, 8, 16, 4, "cuda")
-    with pytest.raises(NotImplementedError, match="backward"):
-        fua.fused_rope_attention_cuda(q.requires_grad_(True), q, q, tables,
-                                      4, 0.25)
     x = _randn(gen, 1, 8, 64)
+    tables = fua.make_tables(8, 8, 16, 4, "cuda")
+    with pytest.raises(ValueError, match="shapes"):
+        fua.fused_rope_attention_bwd_cuda(x, x, x, x[:, :4], tables, 4, 0.25)
     with pytest.raises(ValueError, match="gate"):
         fua.fused_rope_attention_cuda(x, x, x, fua.make_tables(8, 8, 8, 8,
                                                                "cuda"), 8, 0.3)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no silent CPU.
 
-The port (neurosync_trainer_lite_tpu_torch) must import neither jax nor
-anything of neurosync_trainer_lite_tpu, and its entry points must run on the
+The port (neurosync_trainer_lite_tpu_torch) must import neither jax (nor
+optax, which imports it) nor anything of neurosync_trainer_lite_tpu, and its entry points must run on the
 CUDA card unless the caller asks for the CPU.
 """
 
@@ -21,6 +21,7 @@ from neurosync_trainer_lite_tpu_torch.inference.api import (
 )
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq, init_seq2seq
 from neurosync_trainer_lite_tpu_torch.ops.fused_attention import (
+    fused_rope_attention_bwd_cuda,
     fused_rope_attention_cuda,
     make_tables,
 )
@@ -29,6 +30,7 @@ from neurosync_trainer_lite_tpu_torch.ops.frontend import (
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
 from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import rope_rotate_cuda
+from neurosync_trainer_lite_tpu_torch.training.step import init_train_state
 from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
 from neurosync_trainer_lite_tpu_torch.utils.weights import load_model
 
@@ -44,8 +46,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "jaxlib", "neurosync_trainer_lite_tpu")
-             or n.startswith(("jax.", "jaxlib.", "neurosync_trainer_lite_tpu.")))
+             if n in ("jax", "jaxlib", "optax", "neurosync_trainer_lite_tpu")
+             or n.startswith(("jax.", "jaxlib.", "optax.",
+                              "neurosync_trainer_lite_tpu.")))
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """
@@ -98,6 +101,8 @@ ENTRY_POINTS = {
         audio_to_bytes(np.zeros(44100), 88200), from_bytes=True),
     "api": lambda: generate_facial_data_from_bytes(
         audio_to_bytes(np.zeros(44100), 88200), _cpu_model(), CFG),
+    "init_train_state": lambda: init_train_state(
+        CFG, 1, generator=torch.Generator()),
 }
 
 
@@ -121,3 +126,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_rope_attention_cuda(x, x, x, make_tables(8, 8, 16, 4, "cpu"),
                                   4, 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_rope_attention_bwd_cuda(x, x, x, x,
+                                      make_tables(8, 8, 16, 4, "cpu"), 4, 0.25)
