@@ -22,11 +22,17 @@ exits non-zero before its result line.
    serving shape [17, 128, 1024] (the 30 s request's 17 chunks) and the
    training shape [128, 128, 1024]; the K4 backward at the training shape
    in bf16 and fp32 (the forward's bound plus 1e-4 of the largest
-   gradient).
+   gradient). K1 again at the long windows' [32, 512, 1024] and
+   [8, 2048, 1024] (bitwise); K3 forward and backward at (c)
+   [32, 16, 512, 64], (d) [8, 16, 2048, 64] and a ragged cross-length
+   [2, 4, 96 | 192, 32], bf16 (2^-7·|plain| + 2^-9·max|plain|) and fp32
+   (1e-5·max|plain|), the backward bitwise repeatable.
 5. Times each kernel and its plain version (median of CUDA graph replays,
    so host launch overhead is excluded) beside the least time the card
    could take for the same work: K1 and the K4 forward at the serving
-   shape, the K4 backward at the training shape.
+   shape, the K4 backward at the training shape, K3 at (c) and (d) with
+   scaled_dot_product_attention (forward; forward + backward) as the
+   library yardstick, which the port never calls.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -39,26 +45,40 @@ exits non-zero before its result line.
    5% of the output's largest magnitude (bf16 roundings at other places
    over 16 layers). Prints the 30 s request's frames/s (median and
    quartiles of 11), its stages, and the card's busy share and top kernels
-   from torch.profiler.
-8. Trains the full-width model (batch 128 windows x 128 frames, seeded
-   random features and targets, the same seeded weights) at (a) Config():
-   'auto', dropout 0.3, and (b) 'pallas', dropout 0, which runs the K4
-   forward and backward. Checks a finite loss and grad norm at every step,
-   the fixed batch's loss (dropout off) lower after the steps than before,
-   and the kernel launch counts of one step (K1 = 100 at (a); K1 = 52, K4
-   forward = 24, K4 backward = 24 at (b)). Prints samples/s (median and
-   quartiles of 10 steps after 3 warm-up steps), peak device memory, and
-   the card's busy share and top kernels of one profiled step. Then K4's
-   gradients inside the model: one step at dropout 0 at 'auto' and at
-   'pallas' from the same weights and batch agree within 1e-3 in loss and
-   1e-2 in the pre-clip grad norm, and no attention q/k/v weight gradient
-   at 'pallas' lies further from the fp32 step than at 'auto' by more than
-   EXCESS_LIMIT (k4_gradients_in_model); a K4 backward with a planted
-   fault (head 0's dq lost) must exceed that limit.
+   from torch.profiler. Then (s2) the same request at frame_size=512
+   (4 chunks): K3 forward 24 and K1 50 launches a request at 'auto' and
+   'pallas', [1801, 61] finite, within 5% of 'xla' (the composed path),
+   with the same timings.
+8. Trains the full-width model (16,384 frames a step, seeded random
+   features and targets, the same seeded weights): (a) Config(): 'auto',
+   dropout 0.3; (b) 'pallas', dropout 0, which runs the K4 forward and
+   backward; (c) window 512 x batch 32, dropout 0, 'auto', which runs K3.
+   Checks a finite loss and grad norm at every step, the fixed batch's
+   loss (dropout off) lower after the steps than before, and the kernel
+   launch counts of one step (K1 = 100 at (a); K1 = 52, K4 forward = 24,
+   K4 backward = 24 at (b); K1 = 100, K3 forward 24 and backward 24 + 24
+   at (c)). Prints samples/s (median and quartiles of 10 steps after 3
+   warm-up steps), peak device memory, and the card's busy share and top
+   kernels of one profiled step. Then each attention kernel's gradients
+   inside the model (attention_gradients_in_model): one step at dropout 0
+   with the kernel and with the composed path ((b) against 'auto', (c)
+   against 'xla') from the same weights and batch agree within 1e-3 in
+   loss and 1e-2 in the pre-clip grad norm, and no attention q/k/v weight
+   gradient lies further from the fp32 step with the kernel than without
+   by more than EXCESS_LIMIT; a kernel backward with a planted fault (head
+   0's dq lost) must exceed that limit.
+9. Trains (d) window 2048 x batch 8, dropout 0, 'auto' (K3) without remat
+   and with remat=True (1 warm-up, 1 counted and 3 timed steps each), and
+   one step each at remat_policy='dots' and remat_scope='decoder',
+   remat_layers=2. Every remat run's losses and grad norms equal the
+   no-remat run's (relative 1e-6; bitwise printed), full remat lowers the
+   peak device memory, and the launch counts include the rematted layers'
+   forward kernels launched again in the backward (K3 forward 48, K1 148
+   at remat 'all' and 'dots'; 28 and 108 at two decoder layers).
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
-runs, the serving run and one training step at each configuration, each
+runs, the serving runs and one training step at each configuration, each
 counted from zero; launches_by_path: each run's own count); the last line
 the result.
 """
@@ -77,9 +97,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 SERVE_SECONDS = 30             # the timed request: a seeded int16 WAV
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
-EXCESS_LIMIT = 0.05            # k4_gradients_in_model
+EXCESS_LIMIT = 0.05            # attention_gradients_in_model
+#: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8
+K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64)}
 
 
 class SmokeFailure(RuntimeError):
@@ -140,20 +163,37 @@ def eager_ms(fn, iters: int = 50) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+def event_ms(fn, iters: int) -> float:
+    """Device time of one call from CUDA events around `iters` eager calls,
+    after a warm-up: for calls whose device time dwarfs their launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = flops / FP32_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def serving_shape() -> tuple[int, int, int, int]:
+def serving_shape(cfg=None) -> tuple[int, int, int, int]:
     """(B, T, H, heads) the 30 s request gives the kernels: B its chunk
     count (the decode batch), T the chunk length, H the hidden width."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.inference.chunked import chunk_plan
     from neurosync_trainer_lite_tpu_torch.ops.frontend import num_frames_60
 
-    cfg = Config()
+    cfg = cfg or Config()
     frames = num_frames_60(cfg.sr * SERVE_SECONDS, int(0.01667 * cfg.sr))
     starts, _, remaining = chunk_plan(frames, cfg.frame_size, cfg.overlap)
     return (len(starts) + (remaining > 0), cfg.frame_size, cfg.hidden_dim,
@@ -172,7 +212,9 @@ def print_ptxas_summary(log: str) -> None:
             spills = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel)",
+            short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel|"
+                           r"flash_fwd_kernel|flash_bwd_dq_kernel|"
+                           r"flash_bwd_dkdv_kernel)",
                            r"\1", name)
             print(f"ptxas: {short[:48]}: {m.group(1)} registers, {spills}",
                   flush=True)
@@ -332,7 +374,9 @@ def kernel_checks(torch, records):
     records["fused_rope_attention"].update(
         k4, max_abs_err=err["fused_rope_attention"], shape=[B, T, H])
     records["fused_rope_attention_bwd"].update(k4_backward(torch, gen))
-    for name, r in records.items():
+    for name in ("rope_rotate", "fused_rope_attention",
+                 "fused_rope_attention_bwd"):
+        r = records[name]
         print(f"time {name} at {r['shape']} bf16: {r['ms']:.6f} ms on the "
               f"card (CUDA graph), {r['eager_ms']:.6f} ms eager, plain "
               f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
@@ -395,6 +439,210 @@ def k4_backward(torch, gen):
     rec.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=worst,
                shape=[B, T, H])
     return rec
+
+
+def k3_checks(torch, records):
+    """Phases 4 and 5 for K3 (and K1 at its long-window shapes): against the
+    plain versions at (c), (d) and a ragged cross-length shape, in bf16 and
+    fp32, the backward bitwise repeatable; then timed in bf16 at (c) and
+    (d) beside the plain versions, the bounds and SDPA."""
+    import torch.nn.functional as F
+
+    from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
+    from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
+    from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    def limit(ref, dtype):
+        # bf16: one bf16 ulp of the plain value (2^-7 of it), plus 2^-9 of
+        # the largest value where a normalised p, rounded to bf16 after a
+        # sum taken in another order, falls to the neighbouring bf16 value
+        # (forward), or a cancelling sum carries its terms' fp32 rounding
+        # (backward). fp32: 1e-5 of the largest value (sums in another
+        # order).
+        ref = ref.float()
+        if dtype == torch.bfloat16:
+            return 2.0 ** -7 * ref.abs() + 2.0 ** -9 * ref.abs().max()
+        return 1e-5 * ref.abs().max() + 1e-30
+
+    for B, N, T, h in K3_SHAPES.values():
+        tables = rope_tables(T, h, "cuda", tile=N)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(B, T, N * h, dtype=dtype)
+            for transpose in (False, True):
+                out = rk.rope_rotate_cuda(x, *tables, transpose=transpose)
+                torch.cuda.synchronize()
+                check(torch.equal(out, rk.rope_rotate_plain(
+                    x, *tables, transpose=transpose)),
+                      f"K1 rope_rotate [{B}, {T}, {N * h}] {dtype} "
+                      f"transpose={transpose} bitwise equal to the plain "
+                      f"version")
+            del x, out
+
+    err = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    shapes = [(B, N, T, T, h) for B, N, T, h in K3_SHAPES.values()]
+    for B, N, Tq, Tk, h in shapes + [(2, 4, 96, 192, 32)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, do = (randn(B, N, Tq, h, dtype=dtype) for _ in range(2))
+            k, v = (randn(B, N, Tk, h, dtype=dtype) for _ in range(2))
+            scale = h ** -0.5
+            got = {"out": fa.flash_attention_cuda(q, k, v, scale)}
+            grads = fa.flash_attention_bwd_cuda(q, k, v, do, scale)
+            got.update(zip(("dq", "dk", "dv"), grads))
+            torch.cuda.synchronize()
+            want = {"out": fa.flash_attention_plain(q, k, v, scale)}
+            want.update(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+                q, k, v, do, scale)))
+            for name, ref in want.items():
+                diff = (got[name].float() - ref.float()).abs()
+                e = diff.max().item()
+                key = "flash_attention" if name == "out" else \
+                    "flash_attention_bwd"
+                err[key] = max(err[key], e)
+                share = (diff > 2.0 ** -7 * ref.float().abs()).float().mean()
+                check(got[name].dtype == dtype
+                      and bool((diff <= limit(ref, dtype)).all()),
+                      f"K3 {name} [{B}, {N}, {Tq}, {Tk}, {h}] {dtype} within "
+                      f"the limit of the plain version (max abs err {e:.3e}, "
+                      f"max|plain| {ref.float().abs().max().item():.3e}, "
+                      f"{share.item():.2e} of the elements beyond one ulp "
+                      f"of their own value)")
+            again = fa.flash_attention_bwd_cuda(q, k, v, do, scale)
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"K3 backward [{B}, {N}, {Tq}, {Tk}, {h}] {dtype} bitwise "
+                  f"repeatable")
+            del q, k, v, do, got, grads, want, again
+            torch.cuda.empty_cache()
+
+    timed = {}
+    for label, (B, N, T, h) in K3_SHAPES.items():
+        q, k, v, do = (randn(B, N, T, h, dtype=torch.bfloat16)
+                       for _ in range(4))
+        scale = h ** -0.5
+        iters = 10 if T <= 512 else 4
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qg, kg, vg)
+            torch.autograd.grad(out, (qg, kg, vg), do)
+
+        pairs = B * N * T * T
+        item = q.element_size()
+        with torch.no_grad():
+            fwd = dict(
+                ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, scale),
+                             iters=iters),
+                plain_ms=device_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, scale), iters=iters),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v), iters=iters),
+                flops=4 * pairs * h + 5 * pairs,
+                bytes=4 * q.numel() * item)
+            bwd = dict(
+                ms=device_ms(lambda: fa.flash_attention_bwd_cuda(
+                    q, k, v, do, scale), iters=iters),
+                plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, do, scale), iters=max(2, iters // 2)),
+                flops=10 * pairs * h + 10 * pairs,
+                bytes=7 * q.numel() * item)
+        # SDPA forward + backward: the library's whole VJP (its backward
+        # needs its own forward's statistics); CUDA events around an eager
+        # loop, the device being the bottleneck at these shapes
+        bwd["library_ms"] = event_ms(sdpa_fwd_bwd, iters=iters)
+        for rec in (fwd, bwd):
+            rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"],
+                                                     rec["flops"])
+            rec["tensor_core_bound_ms"] = rec["flops"] / BF16_FLOP_PER_S * 1e3
+            rec["shape"] = [B, N, T, h]
+        timed[label] = (fwd, bwd)
+        for name, rec in (("flash_attention", fwd),
+                          ("flash_attention_bwd", bwd)):
+            print(f"time {name} ({label}) at {rec['shape']} bf16: "
+                  f"{rec['ms']:.6f} ms on the card (CUDA graph), plain "
+                  f"{rec['plain_ms']:.6f} ms, SDPA "
+                  f"{'forward' if rec is fwd else 'forward + backward'} "
+                  f"{rec['library_ms']:.6f} ms, bound {rec['bound_ms']:.6f} "
+                  f"ms ({rec['bound_by']}, fp32 CUDA cores), tensor-core "
+                  f"bound {rec['tensor_core_bound_ms']:.6f} ms", flush=True)
+        del q, k, v, do, qg, kg, vg
+        torch.cuda.empty_cache()
+
+    for i, name in enumerate(("flash_attention", "flash_attention_bwd")):
+        first = timed["c"][i]
+        records[name].update(
+            {key: first[key] for key in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by", "shape")},
+            max_abs_err=err[name],
+            by_shape={label: {key: rec[i][key] for key in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "tensor_core_bound_ms")} for label, rec in timed.items()})
+
+
+def serve_long(torch, np):
+    """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
+    at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
+    at T = 512) and at 'xla' (the composed path) for the comparison."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+        Seq2Seq, init_seq2seq)
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
+
+    cfg = Config(dropout=0.0, frame_size=512)
+    models = {"auto": init_seq2seq(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda").eval()}
+    for impl in ("pallas", "xla"):
+        models[impl] = Seq2Seq(cfg.replace(attention_impl=impl), "cuda")
+        models[impl].load_state_dict(models["auto"].state_dict())
+        models[impl].eval()
+    rng = np.random.default_rng(0)
+    wav = audio_to_bytes(rng.standard_normal(cfg.sr * SERVE_SECONDS)
+                         .astype(np.float32) * 0.3, cfg.sr)
+    batch = serving_shape(cfg)[0]
+    print(f"serve (s2): frame_size {cfg.frame_size}, overlap {cfg.overlap}: "
+          f"the 30 s request decodes as [{batch}, {cfg.frame_size}]",
+          flush=True)
+    expected = {"auto": {"rope_rotate": 50, "flash_attention": 24},
+                "pallas": {"rope_rotate": 50, "flash_attention": 24},
+                "xla": {"rope_rotate": 50}}
+    for model in models.values():
+        generate_facial_data_from_bytes(wav, model, cfg)
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    launches, outputs = {}, {}
+    for impl, model in models.items():
+        before = dict(kernels.LAUNCHES)
+        outputs[impl] = generate_facial_data_from_bytes(wav, model, cfg)
+        launches[impl] = {name: count - before.get(name, 0)
+                          for name, count in kernels.LAUNCHES.items()
+                          if count - before.get(name, 0)}
+    main_path = dict(kernels.LAUNCHES)
+    for impl, out in outputs.items():
+        check(launches[impl] == expected[impl],
+              f"(s2) kernel launches of one request at '{impl}': "
+              f"{launches[impl]} == {expected[impl]}")
+        check(out.shape == (1801, 61) and bool(np.isfinite(out).all()),
+              f"(s2) 30 s request at '{impl}': {out.shape} finite frames")
+    ref = outputs["xla"]
+    for impl in ("auto", "pallas"):
+        e, scale = float(np.abs(outputs[impl] - ref).max()), float(
+            np.abs(ref).max())
+        check(e <= 0.05 * scale,
+              f"(s2) '{impl}' (K3) and 'xla' agree within 5% of max|out| "
+              f"(max abs diff {e}, max|out| {scale})")
+    for impl in ("auto", "pallas"):
+        request_timing(torch, np, models[impl], cfg, wav,
+                       f"'{impl}', frame_size 512")
+    del models
+    torch.cuda.empty_cache()
+    return main_path
 
 
 def reference_goldens(torch, np):
@@ -500,11 +748,12 @@ def serve(torch, np):
               f"(max abs diff {e}, max|out| {scale})")
 
     for impl, model in models.items():
-        request_timing(torch, np, model, cfg, clips["30 s seeded"], impl)
+        request_timing(torch, np, model, cfg, clips["30 s seeded"],
+                       f"'{impl}'")
     return main_path
 
 
-def request_timing(torch, np, model, cfg, wav: bytes, impl: str) -> None:
+def request_timing(torch, np, model, cfg, wav: bytes, label: str) -> None:
     """The 30 s request's frames/s, its stages, and the card's busy share."""
     from neurosync_trainer_lite_tpu_torch.inference.api import (
         generate_facial_data_from_bytes)
@@ -526,7 +775,7 @@ def request_timing(torch, np, model, cfg, wav: bytes, impl: str) -> None:
 
     out, med, q1, q3 = wall_ms(
         lambda: generate_facial_data_from_bytes(wav, model, cfg))
-    print(f"30 s request at '{impl}': {len(out)} frames, median {med:.3f} ms "
+    print(f"30 s request at {label}: {len(out)} frames, median {med:.3f} ms "
           f"(quartiles {q1:.3f}, {q3:.3f}) of 11, "
           f"{len(out) / med * 1e3:.1f} frames/s", flush=True)
 
@@ -535,18 +784,92 @@ def request_timing(torch, np, model, cfg, wav: bytes, impl: str) -> None:
         pcm = torch.from_numpy(y.copy())
         feats, fe_ms, _, _ = wall_ms(lambda: extract_features(
             widen_and_normalize(pcm.cuda()), cfg.sr))
-        batch = serving_shape()[0]
+        batch = serving_shape(cfg)[0]
         chunks = feats[:cfg.frame_size].expand(batch, -1, -1).contiguous()
         _, dec_ms, _, _ = wall_ms(lambda: model(chunks))
     _, wav_ms, _, _ = wall_ms(lambda: decode_bytes_to_waveform(wav, cfg))
-    print(f"stages of the request at '{impl}' (median of 11, host clock, "
+    print(f"stages of the request at {label} (median of 11, host clock, "
           f"synchronised): WAV decode {wav_ms:.3f} ms, upload + frontend "
           f"{fe_ms:.3f} ms, decode forward [{batch}, {cfg.frame_size}, "
           f"{cfg.input_dim}] {dec_ms:.3f} ms",
           flush=True)
 
     profile_once(torch, lambda: generate_facial_data_from_bytes(wav, model, cfg),
-                 f"request at '{impl}'", top=8)
+                 f"request at {label}", top=8)
+
+
+def train_batch(torch, cfg, gen):
+    """Seeded random features and blendshape-range targets, never zeros (an
+    all-zero batch gives every LayerNorm a zero variance)."""
+    B, T = cfg.batch_size, cfg.micro_batch_size
+    return (torch.randn(B, T, cfg.input_dim, device="cuda", generator=gen),
+            torch.rand(B, T, cfg.output_dim, device="cuda", generator=gen))
+
+
+def train_config(torch, cfg, weights, src, trg, label, expected, *,
+                 warmup, timed, profile=True, falls=True):
+    """Steps of cfg from `weights` on one fixed batch: `warmup` steps, one
+    step whose kernel launches are counted from zero (the main path run)
+    and must equal `expected`, then `timed` steps. Every step's loss and
+    grad norm must be finite. Returns (launches, [(loss, norm)] of every
+    step, peak device memory in bytes)."""
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.training.step import (
+        init_train_state, make_eval_step, make_train_step)
+
+    B = src.shape[0]
+    state = init_train_state(cfg, 1000, device="cuda", state_dict=weights)
+    step, evaluate = make_train_step(cfg), make_eval_step(cfg)
+    steps = torch.Generator().manual_seed(4)
+    before = float(evaluate(state.model, src, trg)) if falls else None
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+
+    def one_step():
+        _, loss, norm = step(state, src, trg, steps)
+        loss, norm = float(loss), float(norm)
+        check(math.isfinite(loss) and math.isfinite(norm),
+              f"train {label}: finite loss {loss:.6f} and grad norm "
+              f"{norm:.6f}")
+        history.append((loss, norm))
+
+    for _ in range(warmup):
+        one_step()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    one_step()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(launches == expected, f"kernel launches of one training step at "
+          f"{label}: {launches} == {expected}")
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if timed >= 2:
+        q1, med, q3 = statistics.quantiles(times, n=4)
+        print(f"train {label}: step median {med * 1e3:.3f} ms (quartiles "
+              f"{q1 * 1e3:.3f}, {q3 * 1e3:.3f}) of {timed}, "
+              f"{B / med:.1f} samples/s (quartiles {B / q3:.1f}, "
+              f"{B / q1:.1f}), peak device memory {peak} bytes "
+              f"({peak / 2 ** 30:.3f} GiB)", flush=True)
+    else:
+        print(f"train {label}: peak device memory {peak} bytes "
+              f"({peak / 2 ** 30:.3f} GiB)", flush=True)
+    if profile:
+        profile_once(torch, lambda: step(state, src, trg, steps),
+                     f"step at {label}", top=10)
+    if falls:
+        after = float(evaluate(state.model, src, trg))
+        check(after < before, f"train {label}: the fixed batch's loss "
+              f"(dropout off) fell from {before:.6f} to {after:.6f}")
+    del state, step, evaluate
+    torch.cuda.empty_cache()
+    return launches, history, peak
 
 
 def train(torch):
@@ -554,9 +877,7 @@ def train(torch):
     (b) 'pallas', dropout 0, from the same seeded weights and batch."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
-    from neurosync_trainer_lite_tpu_torch.ops import kernels
-    from neurosync_trainer_lite_tpu_torch.training.step import (
-        init_train_state, make_eval_step, make_train_step)
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 
     configs = {"a": Config(), "b": Config(attention_impl="pallas",
                                           dropout=0.0)}
@@ -566,85 +887,135 @@ def train(torch):
     base = configs["a"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     weights = init_seq2seq(base, gen, device="cuda").state_dict()
-    B, T = base.batch_size, base.micro_batch_size
-    # random features and blendshape-range targets, never zeros (an
-    # all-zero batch gives every LayerNorm a zero variance)
-    src = torch.randn(B, T, base.input_dim, device="cuda", generator=gen)
-    trg = torch.rand(B, T, base.output_dim, device="cuda", generator=gen)
-    print(f"train: batch {B} x {T} frames x {base.input_dim} → "
-          f"{base.output_dim}, bf16 over fp32, lr {base.learning_rate}, clip "
-          f"{base.grad_clip}, {TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed "
-          f"steps", flush=True)
+    src, trg = train_batch(torch, base, gen)
+    print(f"train: batch {base.batch_size} x {base.micro_batch_size} frames "
+          f"x {base.input_dim} → {base.output_dim}, bf16 over fp32, lr "
+          f"{base.learning_rate}, clip {base.grad_clip}, {TRAIN_WARMUP} "
+          f"warm-up + {TRAIN_TIMED} timed steps", flush=True)
 
     main_path = {}
     for name, cfg in configs.items():
-        label = (f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}")
-        state = init_train_state(cfg, 1000, device="cuda",
-                                 state_dict=weights)
-        step, evaluate = make_train_step(cfg), make_eval_step(cfg)
-        steps = torch.Generator().manual_seed(4)
-        before = float(evaluate(state.model, src, trg))
-        torch.cuda.reset_peak_memory_stats()
+        label = f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}"
+        main_path[f"train ({name})"] = train_config(
+            torch, cfg, weights, src, trg, label, expected[name],
+            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
 
-        def one_step():
-            _, loss, norm = step(state, src, trg, steps)
-            loss, norm = float(loss), float(norm)
-            check(math.isfinite(loss) and math.isfinite(norm),
-                  f"train {label}: finite loss {loss:.6f} and grad norm "
-                  f"{norm:.6f}")
-            return loss, norm
+    sound = fua.fused_rope_attention_bwd_cuda
 
-        for _ in range(TRAIN_WARMUP):
-            one_step()
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        one_step()
-        torch.cuda.synchronize()
-        main_path[name] = dict(kernels.LAUNCHES)
-        check(main_path[name] == expected[name],
-              f"kernel launches of one training step at {label}: "
-              f"{main_path[name]} == {expected[name]}")
-        times = []
-        for _ in range(TRAIN_TIMED):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            one_step()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        peak = torch.cuda.max_memory_allocated()
-        q1, med, q3 = statistics.quantiles(times, n=4)
-        print(f"train {label}: step median {med * 1e3:.3f} ms (quartiles "
-              f"{q1 * 1e3:.3f}, {q3 * 1e3:.3f}) of {TRAIN_TIMED}, "
-              f"{B / med:.1f} samples/s (quartiles {B / q3:.1f}, "
-              f"{B / q1:.1f}), peak device memory {peak} bytes "
-              f"({peak / 2 ** 30:.3f} GiB)", flush=True)
-        profile_once(torch, lambda: step(state, src, trg, steps),
-                     f"step at {label}", top=10)
-        after = float(evaluate(state.model, src, trg))
-        check(after < before, f"train {label}: the fixed batch's loss "
-              f"(dropout off) fell from {before:.6f} to {after:.6f}")
-        del state, step, evaluate
-        torch.cuda.empty_cache()
+    def lose_head0_dq(q, k, v, do, tables, num_heads, scale):
+        dq, dk, dv = sound(q, k, v, do, tables, num_heads, scale)
+        dq[..., :q.shape[-1] // num_heads] = 0
+        return dq, dk, dv
 
-    k4_gradients_in_model(torch, configs["b"], weights, src, trg)
+    attention_gradients_in_model(
+        torch, configs["b"], weights, src, trg, composed="auto",
+        kernel="pallas", module=fua, wrapper="fused_rope_attention_bwd_cuda",
+        planted=lose_head0_dq, what="K4")
+    main_path.update(train_long_windows(torch, weights))
     return main_path
 
 
-def k4_gradients_in_model(torch, cfg, weights, src, trg) -> None:
-    """K4's gradients inside the model: one step of cfg (dropout 0) at
-    'auto', where attention takes the lean composed core, and at 'pallas',
-    where it takes K4 forward and backward, from the same weights and
-    batch, each also held against the same step in fp32 at 'auto' (plain
-    autograd, TF32 off). Their loss and pre-clip grad norm must agree.
+def train_long_windows(torch, weights):
+    """Phase 9: the full-width model at long windows, where 'auto' takes
+    K3: (c) window 512, batch 32, no remat; (d) window 2048 (MAX_KV_LEN),
+    batch 8, with and without remat, and one step each at remat_policy
+    'dots' and at remat_scope='decoder', remat_layers=2. Each holds 16,384
+    frames a step, as (a) and (b)."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    main_path = {}
+
+    def k3(fwd, bwd=24, rope=100):
+        return {"rope_rotate": rope, "flash_attention": fwd,
+                "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkdv": bwd}
+
+    cfg_c = Config(dropout=0.0, batch_size=32, micro_batch_size=512)
+    src, trg = train_batch(torch, cfg_c, gen)
+    print(f"train (c): batch 32 x 512 frames, 'auto', dropout 0, no remat, "
+          f"{TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed steps", flush=True)
+    main_path["train (c)"] = train_config(
+        torch, cfg_c, weights, src, trg, "(c) window 512, 'auto'", k3(24),
+        warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
+
+    sound = fa.flash_attention_bwd_cuda
+
+    def lose_head0_dq(q, k, v, do, scale):
+        dq, dk, dv = sound(q, k, v, do, scale)
+        dq[:, 0] = 0
+        return dq, dk, dv
+
+    attention_gradients_in_model(
+        torch, cfg_c, weights, src, trg, composed="xla", kernel="auto",
+        module=fa, wrapper="flash_attention_bwd_cuda", planted=lose_head0_dq,
+        what="K3")
+    del src, trg
+    torch.cuda.empty_cache()
+
+    cfg_d = Config(dropout=0.0, batch_size=8, micro_batch_size=2048)
+    src, trg = train_batch(torch, cfg_d, gen)
+    # the rematted layers launch their forward kernels again in the
+    # backward: K3 forward once per attention, K1 twice (q and k)
+    runs = {
+        "no remat": (cfg_d, k3(24), 1, 3),
+        "remat 'all'": (cfg_d.replace(remat=True), k3(48, rope=148), 1, 3),
+        "remat 'dots'": (cfg_d.replace(remat=True, remat_policy="dots"),
+                         k3(48, rope=148), 0, 0),
+        "remat 'decoder', 2 layers": (
+            cfg_d.replace(remat=True, remat_scope="decoder", remat_layers=2),
+            k3(28, rope=108), 0, 0),
+    }
+    print("train (d): batch 8 x 2048 frames, 'auto', dropout 0", flush=True)
+    results = {}
+    for name, (cfg, expected, warmup, timed) in runs.items():
+        launches, history, peak = train_config(
+            torch, cfg, weights, src, trg, f"(d) window 2048, {name}",
+            expected, warmup=warmup, timed=timed, profile=timed > 0,
+            falls=False)
+        main_path[f"train (d) {name}"] = launches
+        results[name] = (history, peak)
+    ref_history, ref_peak = results["no remat"]
+    for name, (history, peak) in results.items():
+        if name == "no remat":
+            continue
+        pairs = list(zip(history, ref_history))
+        gap = max(max(abs(a - b) / abs(b) for a, b in zip(x, y))
+                  for x, y in pairs)
+        bitwise = all(x == y for x, y in pairs)
+        check(gap <= 1e-6, f"train (d) {name}: loss and grad norm of "
+              f"{len(pairs)} step(s) equal the no-remat run's (largest "
+              f"relative difference {gap:.3e}, bitwise {bitwise})")
+        what = (f"train (d) {name}: peak device memory "
+                f"{peak / 2 ** 30:.3f} GiB against no remat's "
+                f"{ref_peak / 2 ** 30:.3f} GiB")
+        if "dots" in name:   # keeps the products' fp32 outputs: printed
+            print(what, flush=True)
+        else:
+            check(peak < ref_peak, what)
+    del src, trg
+    torch.cuda.empty_cache()
+    return main_path
+
+
+def attention_gradients_in_model(torch, cfg, weights, src, trg, *, composed,
+                                 kernel, module, wrapper, planted,
+                                 what) -> None:
+    """An attention kernel's gradients inside the model: one step of cfg
+    (dropout 0) at the `composed` impl, where attention takes the lean
+    composed core, and at the `kernel` impl, where it takes the kernel
+    (`what`) forward and backward, from the same weights and batch, each
+    also held against the same step in fp32 at `composed` (plain autograd,
+    TF32 off). Their loss and pre-clip grad norm must agree.
 
     Per leaf, err = ‖g − g_fp32‖/‖g_fp32‖ of each attention q/k/v weight
     gradient. bf16 elsewhere in the model sets a leaf's err at either impl
     (up to ~0.15 where a small gradient cancels), so the check reads the
-    excess err('pallas') − err('auto'): K4 does its math in fp32, so no leaf
-    may lie further from fp32 at 'pallas' than at 'auto' by more than
-    EXCESS_LIMIT. A planted fault, a K4 backward that loses head 0's dq,
-    must exceed it; the global grad norm hides such a fault."""
-    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+    excess err(kernel) − err(composed): the kernels do their math in fp32,
+    so no leaf may lie further from fp32 with the kernel than without by
+    more than EXCESS_LIMIT. A planted fault, the kernel's backward
+    (module.wrapper) losing head 0's dq, must exceed it; the global grad
+    norm hides such a fault."""
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_train_step)
 
@@ -663,20 +1034,15 @@ def k4_gradients_in_model(torch, cfg, weights, src, trg) -> None:
         torch.cuda.empty_cache()
         return loss, norm, grads
 
-    fp32 = one_step("auto", use_amp=False)
-    runs = {"'auto'": one_step("auto"), "'pallas'": one_step("pallas")}
-    sound = fua.fused_rope_attention_bwd_cuda
-
-    def planted(q, k, v, do, tables, num_heads, scale):
-        dq, dk, dv = sound(q, k, v, do, tables, num_heads, scale)
-        dq[..., :q.shape[-1] // num_heads] = 0
-        return dq, dk, dv
-
-    fua.fused_rope_attention_bwd_cuda = planted
+    lc, lk = f"'{composed}'", f"'{kernel}'"
+    fp32 = one_step(composed, use_amp=False)
+    runs = {lc: one_step(composed), lk: one_step(kernel)}
+    sound = getattr(module, wrapper)
+    setattr(module, wrapper, planted)
     try:
-        runs["'pallas', planted fault"] = one_step("pallas")
+        runs[f"{lk}, planted fault"] = one_step(kernel)
     finally:
-        fua.fused_rope_attention_bwd_cuda = sound
+        setattr(module, wrapper, sound)
 
     err = {label: {n: float((grads[n] - g).norm() / g.norm())
                    for n, g in fp32[2].items()}
@@ -684,27 +1050,27 @@ def k4_gradients_in_model(torch, cfg, weights, src, trg) -> None:
     excess = {}
     for label, (loss, norm, _) in runs.items():
         worst = max(err[label], key=err[label].get)
-        excess[label] = max((e - err["'auto'"][n], n)
+        excess[label] = max((e - err[lc][n], n)
                             for n, e in err[label].items())
         print(f"one step at dropout 0, bf16 at {label}: loss {loss:.6f}, "
               f"grad norm {norm:.6f} (fp32: {fp32[0]:.6f}, {fp32[1]:.6f}); "
               f"attention q/k/v weight gradients against fp32: worst err "
-              f"{err[label][worst]:.3e} ({worst}), worst excess over 'auto' "
+              f"{err[label][worst]:.3e} ({worst}), worst excess over {lc} "
               f"{excess[label][0]:.3e} ({excess[label][1]})", flush=True)
-    (la, na, _), (lp, np_, _) = runs["'auto'"], runs["'pallas'"]
+    (la, na, _), (lp, np_, _) = runs[lc], runs[lk]
     loss_gap, norm_gap = abs(lp - la) / abs(la), abs(np_ - na) / na
     check(loss_gap <= 1e-3 and norm_gap <= 1e-2,
-          f"one step at dropout 0: 'auto' and 'pallas' agree within 1e-3 in "
+          f"one step at dropout 0: {lc} and {lk} agree within 1e-3 in "
           f"loss ({loss_gap:.3e}) and 1e-2 in grad norm ({norm_gap:.3e})")
-    sound_gap = excess["'pallas'"][0]
+    sound_gap = excess[lk][0]
     check(sound_gap <= EXCESS_LIMIT,
           f"one step at dropout 0: no attention q/k/v weight gradient lies "
-          f"further from fp32 at 'pallas' than at 'auto' by more than "
+          f"further from fp32 at {lk} ({what}) than at {lc} by more than "
           f"{EXCESS_LIMIT:g} ({sound_gap:.3e})")
-    fault_gap = excess["'pallas', planted fault"][0]
-    fault_norm = runs["'pallas', planted fault"][1]
+    fault_gap = excess[f"{lk}, planted fault"][0]
+    fault_norm = runs[f"{lk}, planted fault"][1]
     check(fault_gap > EXCESS_LIMIT,
-          f"a K4 backward that loses head 0's dq fails that check "
+          f"a {what} backward that loses head 0's dq fails that check "
           f"({fault_gap:.3e}; its grad norm moves "
           f"{abs(fault_norm - np_) / np_:.3e})")
 
@@ -757,29 +1123,46 @@ def main() -> int:
     for _, log in built.values():
         print_ptxas_summary(log)
 
+    source = "neurosync_trainer_lite_tpu_torch/csrc/"
     records = {
         "rope_rotate": dict(
-            route="cuda", source="neurosync_trainer_lite_tpu_torch/csrc/rope.cu",
+            route="cuda", source=source + "rope.cu",
             replaces="neurosync_trainer_lite_tpu/ops/rope_pallas.py:51",
             tolerance="bitwise"),
         "fused_rope_attention": dict(
-            route="cuda",
-            source="neurosync_trainer_lite_tpu_torch/csrc/fused_attention.cu",
+            route="cuda", source=source + "fused_attention.cu",
             replaces="neurosync_trainer_lite_tpu/ops/fused_attention.py:169",
             tolerance="2^-7*|plain|+1e-6 (bf16), 1e-5*|plain|+1e-6 (fp32)"),
         "fused_rope_attention_bwd": dict(
-            route="cuda",
-            source="neurosync_trainer_lite_tpu_torch/csrc/fused_attention.cu",
+            route="cuda", source=source + "fused_attention.cu",
             replaces="neurosync_trainer_lite_tpu/ops/fused_attention.py:186",
             tolerance="2^-7*|plain|+1e-4*max|plain| (bf16), "
                       "1e-5*|plain|+1e-4*max|plain| (fp32)"),
+        "flash_attention": dict(
+            route="cuda", source=source + "flash_attention.cu",
+            replaces="neurosync_trainer_lite_tpu/ops/flash_attention.py:71",
+            tolerance="2^-7*|plain|+2^-9*max|plain| (bf16), "
+                      "1e-5*max|plain| (fp32)"),
+        "flash_attention_bwd": dict(
+            route="cuda", source=source + "flash_attention.cu",
+            replaces="neurosync_trainer_lite_tpu/ops/flash_attention.py:136",
+            tolerance="2^-7*|plain|+2^-9*max|plain| (bf16), "
+                      "1e-5*max|plain| (fp32)",
+            launch_names=["flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkdv"]),
     }
     rounding_contracts(torch)
     kernel_checks(torch, records)
+    k3_checks(torch, records)
     reference_goldens(torch, np)
-    paths = {"serve": serve(torch, np)}
-    trained = train(torch)
-    paths.update({f"train ({name})": counts for name, counts in trained.items()})
+    paths = {"serve": serve(torch, np), "serve (s2)": serve_long(torch, np)}
+    paths.update(train(torch))
+    for counts in paths.values():   # the K3 backward's two kernels
+        check(counts.get("flash_attention_bwd_dq", 0)
+              == counts.get("flash_attention_bwd_dkdv", 0),
+              "the K3 backward launched its two kernels alike")
+        if "flash_attention_bwd_dq" in counts:
+            counts["flash_attention_bwd"] = counts["flash_attention_bwd_dq"]
     for name in records:
         check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
               f"{name} ran in the main path runs")
@@ -792,8 +1175,9 @@ def main() -> int:
                               for path, counts in paths.items()},
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None,
-         "shape": r["shape"], "tolerance": r["tolerance"]}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+         "shape": r["shape"], "tolerance": r["tolerance"],
+         **{key: r[key] for key in ("by_shape", "launch_names") if key in r}}
         for name, r in records.items()]}
     print(json.dumps(kernel_line))
     print(card)

@@ -6,15 +6,19 @@ the geometry (sr, input_dim, output_dim, frame_size, overlap, hidden_dim,
 n_layers, num_heads), use_amp and attention_impl. The training step
 (training/step.py) also reads dropout, learning_rate, weight_decay, n_epochs,
 warmup_epochs, grad_clip, delta, w1-w4, zero_penalty_weight, loss_variant,
-smoothness_annealing and grad_accum_steps, and refuses remat=True, tp != 1
-and dp > 1, which are not ported yet. The other knobs (the data loop's,
-prng_impl, auto_remat, unroll_residents, async_checkpoint, ...) are kept for
-that compatibility and are read by no module of the port yet.
+smoothness_annealing and grad_accum_steps, and refuses tp != 1 and dp > 1,
+which are not ported yet. The model reads remat, remat_scope, remat_layers
+and remat_policy (per-layer torch.utils.checkpoint, models/seq2seq.py);
+unroll_residents is semantics only there. The other knobs (the data
+loop's, prng_impl, auto_remat, async_checkpoint, ...) are kept for that
+compatibility and are read by no module of the port yet.
 
 attention_impl on the card: 'pallas' selects the fused RoPE-attention CUDA
-kernels (ops/fused_attention.py; in training only where attention dropout
-is off, as in JAX), 'auto' and 'xla' the composed path whose RoPE runs
-through the RoPE CUDA kernel (ops/rope_kernel.py).
+kernels (ops/fused_attention.py) where their shared-memory gate holds and
+the flash-attention kernels (ops/flash_attention.py) elsewhere; 'auto' the
+flash kernels from a key length of 512; both only where attention dropout
+is off, as in JAX. Everything else takes the composed path, whose RoPE
+runs through the RoPE CUDA kernel (ops/rope_kernel.py).
 """
 
 from __future__ import annotations

@@ -18,6 +18,11 @@ place of lax.scan. In bf16, LayerNorm and the training FFN are autograd
 Functions with JAX's lean residuals and rounding points (_layer_norm_bf16,
 _ffn_lean_core); fp32 keeps plain autograd, as in JAX.
 
+Remat (cfg.remat, remat_scope, remat_layers, remat_policy): the first
+remat_layers layers of each stack in scope run under
+torch.utils.checkpoint and are recomputed in the backward (_run_layers);
+'dots' keeps the matrix products' outputs and recomputes the rest.
+
 Training: model.train() and a torch.Generator passed to forward turn
 dropout on; the forward draws one seed from the generator and splits it
 into per-layer and per-site seeds (ops/attention.py:split_seed) in the tree
@@ -27,8 +32,15 @@ the eval forward.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.ops.attention import (
@@ -233,9 +245,56 @@ class DecoderLayer(nn.Module):
         return self.norm3(x + dropout(f, self.rate, s_d3, train))
 
 
+#: the products the port's matmuls reach at the dispatcher (torch.mm with an
+#: fp32 output in _mm_f32, torch.matmul in _matmul_round_once and the fp32
+#: @): what jax.checkpoint_policies.checkpoint_dots saves
+_DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.bmm,
+                      torch.ops.aten.addmm, torch.ops.aten.baddbmm,
+                      torch.ops.aten.matmul})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_count(cfg: Config, scope: str, n_layers: int) -> int:
+    """How many leading layers of the `scope` stack are rematted: JAX's
+    _maybe_remat and _scan_layers (all of them at remat_layers -1 or
+    >= n_layers, none out of scope)."""
+    if not cfg.remat or cfg.remat_scope not in ("all", scope):
+        return 0
+    k = cfg.remat_layers
+    return n_layers if k < 0 or k >= n_layers else k
+
+
+def _run_layers(layers, x, seeds, cfg: Config, scope: str, *memory):
+    """Apply the layers in order; the first _remat_count of them keep only
+    their inputs and are recomputed in the backward (checkpoint per layer,
+    non-reentrant, so the autograd Functions inside work unchanged and the
+    recompute redraws every dropout mask from its per-site seed). Where no
+    backward can follow (grad disabled, as in serving) nothing changes, as
+    in JAX. cfg.unroll_residents is semantics only here: JAX unrolls the
+    resident layers so that lax.scan does not stack their residuals; an
+    eager Python loop stacks nothing."""
+    n_remat = (_remat_count(cfg, scope, len(layers))
+               if torch.is_grad_enabled() else 0)
+    kw = {}
+    if cfg.remat_policy == "dots":   # any other policy: full remat, as JAX
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    for i, (layer, s) in enumerate(zip(layers, seeds)):
+        if i < n_remat:
+            x = checkpoint(layer, x, *memory, s, use_reentrant=False, **kw)
+        else:
+            x = layer(x, *memory, s)
+    return x
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: Config, device):
         super().__init__()
+        self.cfg = cfg
         self.embedding = Linear(cfg.input_dim, cfg.hidden_dim, device)
         self.transformer_encoder = nn.ModuleList(
             EncoderLayer(cfg, device) for _ in range(cfg.n_layers))
@@ -244,14 +303,15 @@ class Encoder(nn.Module):
     def forward(self, x, seed=None):
         x = rope_embed(self.embedding(x))
         seeds = split_or_none(seed, len(self.transformer_encoder))
-        for layer, s in zip(self.transformer_encoder, seeds):
-            x = layer(x, s)
+        x = _run_layers(self.transformer_encoder, x, seeds, self.cfg,
+                        "encoder")
         return self.layer_norm(x)
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: Config, device):
         super().__init__()
+        self.cfg = cfg
         self.transformer_decoder = nn.ModuleList(
             DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
         self.fc_output = Linear(cfg.hidden_dim, cfg.output_dim, device)
@@ -260,8 +320,8 @@ class Decoder(nn.Module):
     def forward(self, encoder_outputs, seed=None):
         x = rope_embed(encoder_outputs)
         seeds = split_or_none(seed, len(self.transformer_decoder))
-        for layer, s in zip(self.transformer_decoder, seeds):
-            x = layer(x, encoder_outputs, s)
+        x = _run_layers(self.transformer_decoder, x, seeds, self.cfg,
+                        "decoder", encoder_outputs)
         return self.fc_output(self.layer_norm(x)).float()
 
 

@@ -17,6 +17,9 @@ JAX path:
 - Training in bf16 runs _sdpa_lean_core, whose backward recomputes the
   scores, the softmax and the dropout mask from (q, k, v, seed) with bf16
   scores and ds and fp32 softmax statistics, as the JAX custom VJP does.
+- sdpa takes the flash-attention kernel K3 (ops/flash_attention.py), fp32
+  inside, where the JAX sdpa takes its Pallas flash kernel: long key
+  strips at 'auto', any length at 'pallas', never with attention dropout.
 
 Dropout keeps JAX's uint8 thresholds: q = round(rate * 256), keep iff
 bits >= q, scale 256 / (256 - q). JAX draws the bits from jax keys, which
@@ -31,13 +34,10 @@ from __future__ import annotations
 
 import torch
 
+from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_qk_preheads
 
-#: the JAX package's flash-attention dispatch (ops/flash_attention.py):
-#: 'auto' takes it from this key length, both take it up to MAX_KV_LEN
-MIN_KV_LEN_AUTO = 512
-MAX_KV_LEN = 2048
 _SEED_HIGH = 1 << 62
 
 
@@ -215,24 +215,20 @@ class _SdpaLeanCore(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-def _flash_supports(kv_len: int, dropout_rate: float, seed) -> bool:
-    """The JAX flash kernel's gate (ops/flash_attention.py:supports)."""
-    return (dropout_rate == 0.0 or seed is None) and kv_len <= MAX_KV_LEN
-
-
 def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
          impl: str = "auto"):
-    """Scaled dot-product attention. q, k, v: [B, n, T, h]."""
+    """Scaled dot-product attention. q, k, v: [B, n, T, h].
+
+    As the JAX sdpa: 'auto' takes the flash kernel K3 (ops/flash_attention.py)
+    from kv_len MIN_KV_LEN_AUTO, 'pallas' at any length, both only where it
+    applies (no active attention dropout, kv_len <= MAX_KV_LEN); the rest
+    takes the composed path. CPU and card take the same branch."""
+    scale = q.shape[-1] ** -0.5
     kv_len = k.shape[-2]
     use_flash = impl == "pallas" or (impl == "auto"
-                                     and kv_len >= MIN_KV_LEN_AUTO)
-    if use_flash and _flash_supports(kv_len, dropout_rate if train else 0.0,
-                                     seed):
-        raise NotImplementedError(
-            "this dispatch takes the flash-attention kernel "
-            "(neurosync_trainer_lite_tpu/ops/flash_attention.py), which is "
-            "not ported yet")
-    scale = q.shape[-1] ** -0.5
+                                     and kv_len >= fa.MIN_KV_LEN_AUTO)
+    if use_flash and fa.supports(kv_len, dropout_rate if train else 0.0, seed):
+        return fa.flash_attention(q, k, v, scale)
     kt = k.transpose(-1, -2)
     if v.dtype == torch.bfloat16:
         if train:

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("rope", "fused_attention")
+SOURCES = ("rope", "fused_attention", "flash_attention")
 # -Xptxas -v: the build log lists each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,6 +47,14 @@ _ARGTYPES = {
         "fused_rope_attention_bwd": [
             _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]},
+    "flash_attention": {
+        "flash_attention_fwd": [
+            _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        "flash_attention_bwd_dq": [
+            _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _P],
+        "flash_attention_bwd_dkdv": [
+            _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
+            _P]},
 }
 
 

@@ -9,7 +9,8 @@ after the other with one seed each; their fp32 gradients and losses are
 summed and divided by A, and one update follows, as the JAX step's scan.
 
 PyTorch runs eagerly: the step is a Python function over a TrainState that
-it updates in place (the JAX step donates its state). remat, tensor and data
+it updates in place (the JAX step donates its state). Remat comes with the
+model (cfg.remat and its knobs, models/seq2seq.py); tensor and data
 parallelism are not ported yet and raise.
 """
 
@@ -43,8 +44,6 @@ class TrainState:
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet")
     if cfg.tp != 1 or cfg.dp > 1:
         raise NotImplementedError("tensor and data parallelism are not "
                                   "ported yet")

@@ -135,11 +135,3 @@ def test_shared_memory_gate():
     assert not tfua.fits_smem(2048, 2048, 64, 2)
     assert not tfua.fits_smem(128, 128, 128, 2)
     assert not tfua.fits_smem(128, 128, 8, 2)
-
-
-def test_unported_flash_dispatch_raises():
-    x = torch.zeros(1, 2, 16, 8)
-    with pytest.raises(NotImplementedError, match="flash"):
-        tattn.sdpa(x, x, x, impl="pallas")
-    with pytest.raises(NotImplementedError, match="flash"):
-        tattn.sdpa(x, torch.zeros(1, 2, 512, 8), torch.zeros(1, 2, 512, 8))

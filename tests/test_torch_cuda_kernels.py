@@ -1,4 +1,4 @@
-"""Kernels K1 and K4 (forward and backward) on the card, against their
+"""Kernels K1, K4 and K3 (forward and backward) on the card, against their
 plain versions.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
@@ -24,6 +24,7 @@ from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
     MultiHeadAttention,
     init_seq2seq,
 )
+from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
@@ -252,3 +253,101 @@ def test_attention_module_on_cuda_matches_cpu(gen):
     with torch.no_grad():
         torch.testing.assert_close(dev(x.cuda(), x.cuda(), x.cuda()).cpu(),
                                    cpu(x, x, x), atol=2e-5, rtol=2e-5)
+
+
+FLASH_SHAPES = [  # B, N, Tq, Tk, h
+    (2, 4, 96, 192, 32),       # ragged query and key tiles, cross lengths
+    (1, 2, 300, 37, 16),       # fewer keys than one tile, ragged queries
+    (2, 16, 512, 512, 64),     # the 512-frame window's heads
+    (1, 2, 130, 70, 128),      # head_dim 128 (registers spill)
+]
+
+
+def flash_limit(ref, dtype):
+    """bf16: one bf16 ulp of the plain value (2^-7 of it), plus 2^-9 of the
+    largest value where a normalised p, rounded to bf16 after a sum taken in
+    another order, falls to the neighbouring bf16 value (forward), or a
+    cancelling sum carries its terms' fp32 rounding (backward). fp32: 1e-5
+    of the largest value (sums in another order)."""
+    ref = ref.float()
+    if dtype == torch.bfloat16:
+        return 2.0 ** -7 * ref.abs() + 2.0 ** -9 * ref.abs().max()
+    return 1e-5 * ref.abs().max() + 1e-30
+
+
+@pytest.mark.parametrize("B,N,Tq,Tk,h", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernels_match_plain(gen, B, N, Tq, Tk, h, dtype):
+    q = _randn(gen, B, N, Tq, h, dtype=dtype)
+    k = _randn(gen, B, N, Tk, h, dtype=dtype)
+    v = _randn(gen, B, N, Tk, h, dtype=dtype)
+    do = _randn(gen, B, N, Tq, h, dtype=dtype)
+    scale = h ** -0.5
+    out = fa.flash_attention_cuda(q, k, v, scale)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, do, scale)
+    torch.cuda.synchronize()
+    want = (fa.flash_attention_plain(q, k, v, scale),
+            *fa.flash_attention_bwd_plain(q, k, v, do, scale))
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
+        assert a.dtype == dtype and a.shape == b.shape
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= flash_limit(b, dtype)).all()), \
+            (name, diff.max().item(), b.float().abs().max().item())
+    again = fa.flash_attention_bwd_cuda(q, k, v, do, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics
+
+
+def test_flash_attention_autograd_runs_the_kernels(gen):
+    q, k, v = (_randn(gen, 2, 4, 70, 16).requires_grad_(True)
+               for _ in range(3))
+    do = _randn(gen, 2, 4, 70, 16)
+    kernels.reset_launches()
+    fa.flash_attention(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"flash_attention": 1,
+                                      "flash_attention_bwd_dq": 1,
+                                      "flash_attention_bwd_dkdv": 1}
+    want = fa.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(),
+                                       do, 0.25)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        assert torch.equal(got, w)
+
+
+def test_flash_attention_refusals(gen):
+    x = _randn(gen, 1, 2, 8, 16)
+    with pytest.raises(ValueError, match="K3"):
+        fa.flash_attention_cuda(*(_randn(gen, 1, 2, 8, 8),) * 3, 0.3)
+    with pytest.raises(ValueError, match="shapes"):
+        fa.flash_attention_bwd_cuda(x, x, x, x[:, :1], 0.25)
+    with pytest.raises(TypeError):
+        fa.flash_attention_cuda(x.half(), x.half(), x.half(), 0.25)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_long_window_train_step_on_the_card_matches_the_cpu(gen, remat):
+    """fp32, dropout 0, a 520-frame window at 'auto': every attention takes
+    K3 (kv_len >= 512). Three steps on the card and on the CPU from the same
+    weights: loss and grad norm within 1e-5; launch counts of one step, the
+    rematted layers' forward kernels launched again in the backward."""
+    cfg = Config(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
+                 output_dim=7, dropout=0.0, use_amp=False, remat=remat)
+    dev = init_train_state(cfg, 5, generator=gen, device="cuda")
+    cpu = init_train_state(cfg, 5, device="cpu", state_dict={
+        k: v.cpu() for k, v in dev.model.state_dict().items()})
+    step = make_train_step(cfg)
+    src, trg = _randn(gen, 2, 520, 32), _randn(gen, 2, 520, 7)
+    gd, gc = torch.Generator(device="cuda"), torch.Generator()
+    for i in range(3):
+        kernels.reset_launches()
+        _, ld, nd = step(dev, src, trg, gd)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        _, lc, nc = step(cpu, src.cpu(), trg.cpu(), gc)
+        assert float(ld) == pytest.approx(float(lc), rel=1e-5), i
+        assert float(nd) == pytest.approx(float(nc), rel=1e-5), i
+    attn = 3 * 2                       # attentions per forward at 2+2 layers
+    again = 2 if remat else 1          # forwards of each layer in a step
+    assert launches == {"rope_rotate": 2 * 2 + (1 + again) * 2 * attn,
+                        "flash_attention": again * attn,
+                        "flash_attention_bwd_dq": attn,
+                        "flash_attention_bwd_dkdv": attn}

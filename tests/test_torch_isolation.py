@@ -20,6 +20,10 @@ from neurosync_trainer_lite_tpu_torch.inference.api import (
     generate_facial_data_from_bytes,
 )
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq, init_seq2seq
+from neurosync_trainer_lite_tpu_torch.ops.flash_attention import (
+    flash_attention_bwd_cuda,
+    flash_attention_cuda,
+)
 from neurosync_trainer_lite_tpu_torch.ops.fused_attention import (
     fused_rope_attention_bwd_cuda,
     fused_rope_attention_cuda,
@@ -50,7 +54,8 @@ bad = sorted(n for n in sys.modules
              or n.startswith(("jax.", "jaxlib.", "optax.",
                               "neurosync_trainer_lite_tpu.")))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+sys.exit(1 if bad or len(names) < 15
+         or pkg.__name__ + ".ops.flash_attention" not in names else 0)
 """
 
 
@@ -129,3 +134,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fused_rope_attention_bwd_cuda(x, x, x, x,
                                       make_tables(8, 8, 16, 4, "cpu"), 4, 0.25)
+    x4 = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x4, x4, x4, 0.25)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(x4, x4, x4, x4, 0.25)

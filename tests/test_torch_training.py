@@ -518,7 +518,7 @@ def test_dropout_step_is_seeded_by_the_generator(use_amp):
 
 
 def test_unported_options_raise():
-    for kw in ({"remat": True}, {"tp": 2}, {"dp": 2}):
+    for kw in ({"tp": 2}, {"dp": 2}):
         with pytest.raises(NotImplementedError, match="not ported"):
             tstep.make_train_step(Config(**GEOM, **kw))
     with pytest.raises(ValueError, match="total_steps"):
