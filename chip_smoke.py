@@ -31,8 +31,10 @@ exits non-zero before its result line.
    so host launch overhead is excluded) beside the least time the card
    could take for the same work: K1 and the K4 forward at the serving
    shape, the K4 backward at the training shape, K3 at (c) and (d) with
-   scaled_dot_product_attention (forward; forward + backward) as the
-   library yardstick, which the port never calls.
+   scaled_dot_product_attention (forward; backward alone, and forward +
+   backward beside it) as the library yardstick, which the port never
+   calls. A bound charges products with bf16 operands at the tensor cores'
+   peak and all other operations at the fp32 CUDA cores'.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -123,19 +125,20 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, iters: int = 20, reps: int = 7) -> float:
+def device_ms(fn, iters: int = 20, reps: int = 7, stream=None) -> float:
     """Median device time of one call: `iters` calls captured in a CUDA
-    graph and replayed between two events."""
+    graph (on `stream` if given, else on a stream of its own) and replayed
+    between two events."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     times = []
@@ -180,9 +183,13 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          bf16_flops: float = 0.0) -> tuple[float, str]:
+    """The least time of the work: `flops` on fp32 operands at the CUDA
+    cores' peak and `bf16_flops` (products with bf16 operands) at the tensor
+    cores', which run alongside each other and alongside the memory."""
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOP_PER_S * 1e3
+    by_ops = max(flops / FP32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -430,12 +437,14 @@ def k4_backward(torch, gen):
             q, k, v, do, tables, n, scale), iters=5),
         eager_ms=eager_ms(lambda: fua.fused_rope_attention_bwd_cuda(
             q, k, v, do, tables, n, scale), iters=10))
-    # five T·T·hd products per head (2 flops each), the rotation of q and k
-    # and the transpose rotation of dq and dk (5 flops per element each),
-    # softmax, D and ds (~10 per score); q, k, v, dO read, dq, dk, dv
-    # written once, six fp32 tables
-    flops = 10 * B * T * T * H + 20 * B * T * H + 10 * B * n * T * T
-    b_ms, b_by = bound(7 * B * T * H * 2 + 6 * T * H * 4, flops)
+    # five T·T·hd products per head (2 flops each), of which dp = dO·vᵀ has
+    # bf16 operands and the other four an fp32 one (rotated q and k, p, ds),
+    # the rotation of q and k and the transpose rotation of dq and dk (5
+    # flops per element each), softmax, D and ds (~10 per score); q, k, v,
+    # dO read, dq, dk, dv written once, six fp32 tables
+    flops = 8 * B * T * T * H + 20 * B * T * H + 10 * B * n * T * T
+    b_ms, b_by = bound(7 * B * T * H * 2 + 6 * T * H * 4, flops,
+                       bf16_flops=2 * B * T * T * H)
     rec.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=worst,
                shape=[B, T, H])
     return rec
@@ -456,18 +465,6 @@ def k3_checks(torch, records):
 
     def randn(*shape, dtype):
         return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
-
-    def limit(ref, dtype):
-        # bf16: one bf16 ulp of the plain value (2^-7 of it), plus 2^-9 of
-        # the largest value where a normalised p, rounded to bf16 after a
-        # sum taken in another order, falls to the neighbouring bf16 value
-        # (forward), or a cancelling sum carries its terms' fp32 rounding
-        # (backward). fp32: 1e-5 of the largest value (sums in another
-        # order).
-        ref = ref.float()
-        if dtype == torch.bfloat16:
-            return 2.0 ** -7 * ref.abs() + 2.0 ** -9 * ref.abs().max()
-        return 1e-5 * ref.abs().max() + 1e-30
 
     for B, N, T, h in K3_SHAPES.values():
         tables = rope_tables(T, h, "cuda", tile=N)
@@ -505,7 +502,7 @@ def k3_checks(torch, records):
                 err[key] = max(err[key], e)
                 share = (diff > 2.0 ** -7 * ref.float().abs()).float().mean()
                 check(got[name].dtype == dtype
-                      and bool((diff <= limit(ref, dtype)).all()),
+                      and bool((diff <= fa.kernel_limit(ref, dtype)).all()),
                       f"K3 {name} [{B}, {N}, {Tq}, {Tk}, {h}] {dtype} within "
                       f"the limit of the plain version (max abs err {e:.3e}, "
                       f"max|plain| {ref.float().abs().max().item():.3e}, "
@@ -532,6 +529,10 @@ def k3_checks(torch, records):
 
         pairs = B * N * T * T
         item = q.element_size()
+        # forward: q·kᵀ and p·v (2h flops a pair each) have bf16 operands,
+        # p being rounded to v's type first; softmax ~5 a pair. Backward:
+        # s = q·kᵀ and dp = dO·vᵀ have bf16 operands, pᵀ·dO, ds·k and dsᵀ·q
+        # an fp32 one (p and ds stay fp32); softmax, D and ds ~10 a pair
         with torch.no_grad():
             fwd = dict(
                 ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, scale),
@@ -540,23 +541,33 @@ def k3_checks(torch, records):
                     q, k, v, scale), iters=iters),
                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v), iters=iters),
-                flops=4 * pairs * h + 5 * pairs,
+                bf16_flops=4 * pairs * h, flops=5 * pairs,
                 bytes=4 * q.numel() * item)
             bwd = dict(
                 ms=device_ms(lambda: fa.flash_attention_bwd_cuda(
                     q, k, v, do, scale), iters=iters),
                 plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, do, scale), iters=max(2, iters // 2)),
-                flops=10 * pairs * h + 10 * pairs,
+                bf16_flops=4 * pairs * h, flops=6 * pairs * h + 10 * pairs,
                 bytes=7 * q.numel() * item)
-        # SDPA forward + backward: the library's whole VJP (its backward
-        # needs its own forward's statistics); CUDA events around an eager
-        # loop, the device being the bottleneck at these shapes
-        bwd["library_ms"] = event_ms(sdpa_fwd_bwd, iters=iters)
+        # SDPA's backward alone, replayed like the kernel's: its kernels run
+        # on the stream of their forward, so the forward runs on the stream
+        # the graph captures
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out = F.scaled_dot_product_attention(qg, kg, vg)
+        bwd["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True), iters=iters,
+            stream=stream)
+        # and the library's whole VJP (CUDA events around an eager loop)
+        bwd["library_fwd_bwd_ms"] = event_ms(sdpa_fwd_bwd, iters=iters)
         for rec in (fwd, bwd):
-            rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"],
-                                                     rec["flops"])
-            rec["tensor_core_bound_ms"] = rec["flops"] / BF16_FLOP_PER_S * 1e3
+            rec["bound_ms"], rec["bound_by"] = bound(
+                rec["bytes"], rec["flops"], rec["bf16_flops"])
+            every = rec["flops"] + rec["bf16_flops"]
+            rec["fp32_bound_ms"] = bound(rec["bytes"], every)[0]
+            rec["tensor_core_bound_ms"] = every / BF16_FLOP_PER_S * 1e3
             rec["shape"] = [B, N, T, h]
         timed[label] = (fwd, bwd)
         for name, rec in (("flash_attention", fwd),
@@ -564,11 +575,15 @@ def k3_checks(torch, records):
             print(f"time {name} ({label}) at {rec['shape']} bf16: "
                   f"{rec['ms']:.6f} ms on the card (CUDA graph), plain "
                   f"{rec['plain_ms']:.6f} ms, SDPA "
-                  f"{'forward' if rec is fwd else 'forward + backward'} "
-                  f"{rec['library_ms']:.6f} ms, bound {rec['bound_ms']:.6f} "
-                  f"ms ({rec['bound_by']}, fp32 CUDA cores), tensor-core "
-                  f"bound {rec['tensor_core_bound_ms']:.6f} ms", flush=True)
-        del q, k, v, do, qg, kg, vg
+                  f"{'forward' if rec is fwd else 'backward'} "
+                  f"{rec['library_ms']:.6f} ms"
+                  + (f" (forward + backward {rec['library_fwd_bwd_ms']:.6f} "
+                     f"ms, CUDA events)" if rec is bwd else "")
+                  + f", bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
+                  f"bf16 products on tensor cores), every operation on fp32 "
+                  f"CUDA cores {rec['fp32_bound_ms']:.6f} ms, on tensor cores "
+                  f"{rec['tensor_core_bound_ms']:.6f} ms", flush=True)
+        del q, k, v, do, qg, kg, vg, out
         torch.cuda.empty_cache()
 
     for i, name in enumerate(("flash_attention", "flash_attention_bwd")):
@@ -578,8 +593,9 @@ def k3_checks(torch, records):
                                          "bound_ms", "bound_by", "shape")},
             max_abs_err=err[name],
             by_shape={label: {key: rec[i][key] for key in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                "tensor_core_bound_ms")} for label, rec in timed.items()})
+                "shape", "ms", "plain_ms", "library_ms", "library_fwd_bwd_ms",
+                "bound_ms", "fp32_bound_ms", "tensor_core_bound_ms")
+                if key in rec[i]} for label, rec in timed.items()})
 
 
 def serve_long(torch, np):

@@ -24,9 +24,6 @@ import torch
 
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 
-#: query (forward, dq) or key (dk/dv) rows a block of the kernels owns
-#: (csrc kRows; the Pallas kernel's q-block is 128 rows)
-Q_BLOCK = 64
 #: the JAX kernel keeps the whole K/V strip in VMEM up to this key length;
 #: both packages take the composed path above it
 MAX_KV_LEN = 2048
@@ -66,6 +63,20 @@ def flash_attention_bwd_plain(q, k, v, do, scale: float):
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def kernel_limit(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Elementwise bound on |kernel − plain| for a plain result `ref`.
+
+    bf16: one bf16 ulp of the plain value (2^-7 of it), plus 2^-9 of the
+    largest value where a normalised p, rounded to bf16 after a sum taken in
+    another order, falls to the neighbouring bf16 value (forward), or a
+    cancelling sum carries its terms' fp32 rounding (backward). fp32: 1e-5
+    of the largest value (sums in another order)."""
+    ref = ref.float()
+    if dtype == torch.bfloat16:
+        return 2.0 ** -7 * ref.abs() + 2.0 ** -9 * ref.abs().max()
+    return 1e-5 * ref.abs().max() + 1e-30
 
 
 def _check_inputs(name, q, k, v, more=()):

@@ -263,18 +263,6 @@ FLASH_SHAPES = [  # B, N, Tq, Tk, h
 ]
 
 
-def flash_limit(ref, dtype):
-    """bf16: one bf16 ulp of the plain value (2^-7 of it), plus 2^-9 of the
-    largest value where a normalised p, rounded to bf16 after a sum taken in
-    another order, falls to the neighbouring bf16 value (forward), or a
-    cancelling sum carries its terms' fp32 rounding (backward). fp32: 1e-5
-    of the largest value (sums in another order)."""
-    ref = ref.float()
-    if dtype == torch.bfloat16:
-        return 2.0 ** -7 * ref.abs() + 2.0 ** -9 * ref.abs().max()
-    return 1e-5 * ref.abs().max() + 1e-30
-
-
 @pytest.mark.parametrize("B,N,Tq,Tk,h", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernels_match_plain(gen, B, N, Tq, Tk, h, dtype):
@@ -291,7 +279,7 @@ def test_flash_attention_kernels_match_plain(gen, B, N, Tq, Tk, h, dtype):
     for name, a, b in zip(("out", "dq", "dk", "dv"), (out, *grads), want):
         assert a.dtype == dtype and a.shape == b.shape
         diff = (a.float() - b.float()).abs()
-        assert bool((diff <= flash_limit(b, dtype)).all()), \
+        assert bool((diff <= fa.kernel_limit(b, dtype)).all()), \
             (name, diff.max().item(), b.float().abs().max().item())
     again = fa.flash_attention_bwd_cuda(q, k, v, do, scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # no atomics

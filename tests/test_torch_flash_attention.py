@@ -114,6 +114,20 @@ def test_flash_attention_scale_and_plain_backward():
         assert torch.equal(g.grad, want)
 
 
+def test_kernel_limit_admits_one_bf16_ulp_and_not_two():
+    """The card checks' bound: one bf16 ulp of every element passes, two
+    ulps of the largest do not; fp32 is 1e-5 of the largest value."""
+    ref = torch.tensor([1.0, -0.375, 0.0078125, 3e-4]).to(torch.bfloat16)
+    up = torch.nextafter(ref, torch.full_like(ref, 8.0))
+    limit = tfa.kernel_limit(ref, torch.bfloat16)
+    assert bool(((up.float() - ref.float()).abs() <= limit).all())
+    twice = torch.nextafter(up, torch.full_like(up, 8.0))
+    assert (twice.float() - ref.float())[0] > limit[0]
+    ref32 = ref.float()
+    assert torch.allclose(tfa.kernel_limit(ref32, torch.float32),
+                          torch.full_like(ref32, 1e-5), rtol=0, atol=1e-30)
+
+
 def test_supports_gate():
     assert tfa.supports(2048, 0.0, 123) and tfa.supports(16, 0.3, None)
     assert not tfa.supports(2049, 0.0, None)
