@@ -26,15 +26,19 @@ exits non-zero before its result line.
    [8, 2048, 1024] (bitwise); K3 forward and backward at (c)
    [32, 16, 512, 64], (d) [8, 16, 2048, 64] and a ragged cross-length
    [2, 4, 96 | 192, 32], bf16 (2^-7·|plain| + 2^-9·max|plain|) and fp32
-   (1e-5·max|plain|), the backward bitwise repeatable.
+   (1e-5·max|plain|), the backward bitwise repeatable; K2 (the fused FFN
+   backward) at step (a)'s [16384, 1024, 4096] at scale 1 and 256/179, the
+   ragged [96, 64, 192] and [1000, 1024, 4096] (dh1 2^-7·|plain| +
+   1e-5·max|plain|, db2 and db1 2e-4·max|plain|), bitwise repeatable.
 5. Times each kernel and its plain version (median of CUDA graph replays,
    so host launch overhead is excluded) beside the least time the card
    could take for the same work: K1 and the K4 forward at the serving
    shape, the K4 backward at the training shape, K3 at (c) and (d) with
    scaled_dot_product_attention (forward; backward alone, and forward +
    backward beside it) as the library yardstick, which the port never
-   calls. A bound charges products with bf16 operands at the tensor cores'
-   peak and all other operations at the fp32 CUDA cores'.
+   calls, and K2 at (a)'s shape beside cuBLAS's dy·W alone. A bound
+   charges products with bf16 operands at the tensor cores' peak and all
+   other operations at the fp32 CUDA cores'.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -77,6 +81,19 @@ exits non-zero before its result line.
    peak device memory, and the launch counts include the rematted layers'
    forward kernels launched again in the backward (K3 forward 48, K1 148
    at remat 'all' and 'dots'; 28 and 108 at two decoder layers).
+10. (e) Step (a) with seq2seq._ffn rebound to ops/ffn_bwd.py:ffn_fused, so
+   that every FFN backward runs K2: K2 = 16 and K1 = 100 launches a step
+   (K2 = 0 with the default _ffn again), samples/s, peak memory and busy
+   share beside (a); one dropout-0 step against the default path and fp32
+   per FFN weight and bias leaf, with a planted fault (db1 zeroed) that the
+   check must catch.
+11. (f) The training entry point at full width on the repo's real capture:
+   train_model on a temporary copy of dataset/data (features from the
+   device frontend), validating on dataset/test_set, 2 epochs and a resume
+   for a third; losses finite and falling, batch_step and Adam's count
+   continuing, checkpoints, backups, validation CSVs and stats written,
+   model.pth serving the test clip; then the CLI
+   (python -m neurosync_trainer_lite_tpu_torch.train) for 2 steps.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
@@ -105,6 +122,9 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8
 K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64)}
+#: (M, H, F) K2 gets at step (a) (128 x 128 rows, hidden 1024, FFN 4096),
+#: the JAX test's ragged shape, and M off the kernel's 128-row tile
+K2_SHAPES = [(16384, 1024, 4096), (96, 64, 192), (1000, 1024, 4096)]
 
 
 class SmokeFailure(RuntimeError):
@@ -221,7 +241,7 @@ def print_ptxas_summary(log: str) -> None:
         if m and name:
             short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel|"
                            r"flash_fwd_kernel|flash_bwd_dq_kernel|"
-                           r"flash_bwd_dkdv_kernel)",
+                           r"flash_bwd_dkdv_kernel|ffn_bwd_kernel)",
                            r"\1", name)
             print(f"ptxas: {short[:48]}: {m.group(1)} registers, {spills}",
                   flush=True)
@@ -598,6 +618,77 @@ def k3_checks(torch, records):
                 if key in rec[i]} for label, rec in timed.items()})
 
 
+def k2_checks(torch, records):
+    """Phases 4 and 5 for K2: against its plain version at step (a)'s shape
+    at scale 1 and 256/179 (dropout 0.3), the ragged JAX test shape and a
+    row count off the tile, bitwise repeatable; then timed at (a)'s shape
+    beside the plain version, the bound and cuBLAS's dy·W alone."""
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16 = torch.bfloat16
+
+    def inputs(m, h, f):
+        dy = torch.randn(m, h, device="cuda", generator=gen).to(bf16)
+        w = (torch.randn(h, f, device="cuda", generator=gen) * 0.02).to(bf16)
+        am = torch.relu(torch.randn(m, f, device="cuda", generator=gen)
+                        - 0.3).to(bf16)
+        return dy, w, am
+
+    worst = 0.0
+    for m, h, f in K2_SHAPES:
+        dy, w, am = inputs(m, h, f)
+        scales = (1.0, 256 / 179) if m == K2_SHAPES[0][0] else (256 / 179,)
+        for scale in scales:
+            out = ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale)
+            torch.cuda.synchronize()
+            ref = ffn_bwd.ffn_bwd_dh1_plain(dy, w, am, scale=scale)
+            for name, a, b, limit in zip(("dh1", "db2", "db1"), out, ref,
+                                         ffn_bwd.kernel_limits(ref)):
+                diff = (a.float() - b.float()).abs()
+                e = diff.max().item()
+                worst = max(worst, e)
+                share = (diff > 0).float().mean().item()
+                check(a.dtype == b.dtype and a.shape == b.shape
+                      and bool((diff <= limit).all()),
+                      f"K2 {name} [{m}, {h}, {f}] scale {scale:.6f} within "
+                      f"the limit of the plain version (max abs err {e:.3e}, "
+                      f"max|plain| {b.float().abs().max().item():.3e}, "
+                      f"{share:.2e} of the elements differ)")
+            again = ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale)
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"K2 [{m}, {h}, {f}] scale {scale:.6f} bitwise repeatable")
+        del dy, w, am, out, ref, again
+
+    m, h, f = K2_SHAPES[0]
+    dy, w, am = inputs(m, h, f)
+    scale = 256 / 179
+    rec = dict(
+        ms=device_ms(lambda: ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale),
+                     iters=10),
+        plain_ms=device_ms(lambda: ffn_bwd.ffn_bwd_dh1_plain(
+            dy, w, am, scale=scale), iters=10),
+        library_ms=device_ms(lambda: torch.mm(dy, w, out_dtype=torch.float32),
+                             iters=10))
+    # dy·W with bf16 operands on the tensor cores; the epilogue (compare,
+    # scale, column sum: 3 a dh1 element) and dy's column sums on the CUDA
+    # cores; dy, W, am read and dh1, db2, db1 written once
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * (m * h + h * f + 2 * m * f) + 4 * (h + f), 3 * m * f + m * h,
+        bf16_flops=2 * m * h * f)
+    rec["tensor_core_bound_ms"] = 2 * m * h * f / BF16_FLOP_PER_S * 1e3
+    rec["fp32_bound_ms"] = 2 * m * h * f / FP32_FLOP_PER_S * 1e3
+    rec.update(max_abs_err=worst, shape=[m, h, f])
+    records["ffn_bwd_dh1"].update(rec)
+    print(f"time ffn_bwd_dh1 at [{m}, {h}, {f}] bf16: {rec['ms']:.6f} ms on "
+          f"the card (CUDA graph), plain {rec['plain_ms']:.6f} ms, cuBLAS "
+          f"dy·W alone {rec['library_ms']:.6f} ms, bound "
+          f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}; the product on fp32 "
+          f"CUDA cores {rec['fp32_bound_ms']:.6f} ms)", flush=True)
+    del dy, w, am
+    torch.cuda.empty_cache()
+
+
 def serve_long(torch, np):
     """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
     at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
@@ -828,7 +919,7 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
     step whose kernel launches are counted from zero (the main path run)
     and must equal `expected`, then `timed` steps. Every step's loss and
     grad norm must be finite. Returns (launches, [(loss, norm)] of every
-    step, peak device memory in bytes)."""
+    step, peak device memory in bytes, median step seconds or None)."""
     from neurosync_trainer_lite_tpu_torch.ops import kernels
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_eval_step, make_train_step)
@@ -866,6 +957,7 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
+    med = None
     if timed >= 2:
         q1, med, q3 = statistics.quantiles(times, n=4)
         print(f"train {label}: step median {med * 1e3:.3f} ms (quartiles "
@@ -885,12 +977,14 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
               f"(dropout off) fell from {before:.6f} to {after:.6f}")
     del state, step, evaluate
     torch.cuda.empty_cache()
-    return launches, history, peak
+    return launches, history, peak, med
 
 
 def train(torch):
     """Phase 8: the full-width training step at (a) 'auto', dropout 0.3 and
-    (b) 'pallas', dropout 0, from the same seeded weights and batch."""
+    (b) 'pallas', dropout 0, from the same seeded weights and batch; then
+    (e) and the long windows. Returns (the main path's launch counts by
+    run, {'samples_per_s', 'peak'} of (a))."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
     from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
@@ -909,12 +1003,15 @@ def train(torch):
           f"{base.learning_rate}, clip {base.grad_clip}, {TRAIN_WARMUP} "
           f"warm-up + {TRAIN_TIMED} timed steps", flush=True)
 
-    main_path = {}
+    main_path, step_a = {}, {}
     for name, cfg in configs.items():
         label = f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}"
-        main_path[f"train ({name})"] = train_config(
+        launches, _, peak, med = train_config(
             torch, cfg, weights, src, trg, label, expected[name],
-            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
+            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
+        main_path[f"train ({name})"] = launches
+        if name == "a":
+            step_a = {"samples_per_s": cfg.batch_size / med, "peak": peak}
 
     sound = fua.fused_rope_attention_bwd_cuda
 
@@ -927,8 +1024,53 @@ def train(torch):
         torch, configs["b"], weights, src, trg, composed="auto",
         kernel="pallas", module=fua, wrapper="fused_rope_attention_bwd_cuda",
         planted=lose_head0_dq, what="K4")
+    main_path.update(train_ffn_fused(torch, configs["a"], weights, src, trg))
     main_path.update(train_long_windows(torch, weights))
-    return main_path
+    return main_path, step_a
+
+
+def train_ffn_fused(torch, cfg, weights, src, trg):
+    """Phase 10 (e): step (a) with the model's FFN routed through ffn_fused
+    (seq2seq._ffn rebound, as tools/tpu_probe.py rebinds the JAX model's),
+    so that the FFN backward runs K2: K2 = 16 (8 + 8 FFNs) and K1 = 100
+    launches a step, samples/s, peak memory and busy share beside (a); one
+    step with the default _ffn again runs no K2. Then K2's gradients inside
+    the model at dropout 0 against the default path and fp32, with a
+    planted fault (db1 zeroed) that the check must catch."""
+    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+
+    default = seq2seq._ffn
+    seq2seq._ffn = ffn_bwd.ffn_fused
+    try:
+        launches = train_config(
+            torch, cfg, weights, src, trg,
+            f"(e) '{cfg.attention_impl}', dropout {cfg.dropout}, FFN "
+            f"backward through K2", {"rope_rotate": 100, "ffn_bwd_dh1": 16},
+            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
+    finally:
+        seq2seq._ffn = default
+    train_config(torch, cfg, weights, src, trg, "(e) with the default _ffn "
+                 "again", {"rope_rotate": 100}, warmup=0, timed=0,
+                 profile=False, falls=False)
+
+    sound = ffn_bwd.ffn_bwd_dh1_cuda
+
+    def zero_db1(dy, w2, am, *, scale):
+        dh1, db2, db1 = sound(dy, w2, am, scale=scale)
+        return dh1, db2, torch.zeros_like(db1)
+
+    c0 = cfg.replace(dropout=0.0)
+    fused = [(seq2seq, "_ffn", ffn_bwd.ffn_fused)]
+    gradients_in_model(
+        torch, weights, src, trg, fp32=(c0.replace(use_amp=False), []),
+        baseline=("the default _ffn", c0, []),
+        kernel=("ffn_fused", c0, fused),
+        planted=(c0, fused + [(ffn_bwd, "ffn_bwd_dh1_cuda", zero_db1)]),
+        leaves=r"\.ffn\.linear[12]\.(weight|bias)$",
+        leaf_kind="FFN linear1/linear2 weight and bias", what="K2",
+        fault="zeroes db1")
+    return {"train (e)": launches}
 
 
 def train_long_windows(torch, weights):
@@ -985,7 +1127,7 @@ def train_long_windows(torch, weights):
     print("train (d): batch 8 x 2048 frames, 'auto', dropout 0", flush=True)
     results = {}
     for name, (cfg, expected, warmup, timed) in runs.items():
-        launches, history, peak = train_config(
+        launches, history, peak, _ = train_config(
             torch, cfg, weights, src, trg, f"(d) window 2048, {name}",
             expected, warmup=warmup, timed=timed, profile=timed > 0,
             falls=False)
@@ -1014,54 +1156,219 @@ def train_long_windows(torch, weights):
     return main_path
 
 
+def train_entry_point(torch, np, step_a) -> None:
+    """Phase 11 (f): the training entry point at full width on the repo's
+    real capture. train_model(Config(...)) on a temporary copy of
+    dataset/data (its features extracted by the device frontend; nothing
+    written into the checkout), validating on dataset/test_set each epoch:
+    2 epochs, then a resume for a third. Checks finite losses, a lower mean
+    loss in the third epoch than in the first, batch_step and Adam's step
+    count continuing across the resume, the checkpoint directory (meta.json,
+    backup_*), model.pth, the validation CSVs and stats, and that model.pth
+    serves dataset/test_set/audio.wav to finite [T, 61] frames. Prints the
+    loop's seconds and samples/s per epoch beside step (a)'s, the feature
+    extraction time, the gather used, checkpoint save times and bytes, and
+    the planner's estimate beside (a)'s measured peak. Then runs the CLI
+    (python -m neurosync_trainer_lite_tpu_torch.train) for 1 epoch of 2
+    steps in a subprocess."""
+    import os
+    import shutil
+    import tempfile
+
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.data import native
+    from neurosync_trainer_lite_tpu_torch.data.processing import (
+        extract_audio_features)
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.training import checkpoint as ckpt
+    from neurosync_trainer_lite_tpu_torch.training.loop import (
+        estimate_step_hbm_bytes, train_model)
+    from neurosync_trainer_lite_tpu_torch.training.step import opt_step_count
+    from neurosync_trainer_lite_tpu_torch.utils.weights import load_model
+
+    capture = REPO / "dataset" / "data"
+    test_set = REPO / "dataset" / "test_set"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        data = os.path.join(tmp, "data")
+        shutil.copytree(capture, data,
+                        ignore=shutil.ignore_patterns("audio_features.csv"))
+        out = os.path.join(tmp, "out")
+        cfg = Config(root_dir=data, n_epochs=2,
+                     audio_path=str(test_set / "audio.wav"),
+                     ground_truth_path=str(test_set / "testset.csv"),
+                     model_path=os.path.join(out, "model.pth"),
+                     checkpoint_path=os.path.join(out, "checkpoints",
+                                                  "checkpoint"),
+                     plots_dir=os.path.join(tmp, "plots"))
+        wav = next(capture.glob("*/audio.wav"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats, _ = extract_audio_features(str(wav), cfg.sr, device="cuda")
+        torch.cuda.synchronize()
+        print(f"(f) {wav.relative_to(REPO)}: features {feats.shape} from the "
+              f"device frontend in {time.perf_counter() - t0:.3f} s (decode "
+              f"+ upload + frontend + download); window gather on this "
+              f"machine: "
+              f"{'native' if native.load_library() is not None else 'numpy'}",
+              flush=True)
+
+        history = {}
+        t0 = time.perf_counter()
+        state, steps = train_model(cfg, device="cuda", history_out=history)
+        first_run = time.perf_counter() - t0
+        resumed, total = train_model(cfg.replace(mode="resume", n_epochs=3),
+                                     device="cuda", history_out=history)
+        torch.cuda.synchronize()
+        per_epoch = steps // 2
+        losses = history["train_losses"]
+        check(len(losses) == total == 3 * per_epoch > 0
+              and all(math.isfinite(x) for x in losses + history["val_losses"]
+                      + history["grad_norms"]),
+              f"(f) {total} finite training steps over 3 epochs "
+              f"({per_epoch} a epoch), {len(history['val_losses'])} finite "
+              f"validation losses")
+        means = [float(np.mean(losses[i * per_epoch:(i + 1) * per_epoch]))
+                 for i in range(3)]
+        check(means[2] < means[0], f"(f) mean training loss by epoch "
+              f"{[round(m, 6) for m in means]}: the third below the first")
+        check(steps == 2 * per_epoch and opt_step_count(resumed) == total,
+              f"(f) batch_step {steps} after 2 epochs continues to {total} "
+              f"after the resume, Adam's step count "
+              f"{opt_step_count(resumed)}")
+        parent = os.path.dirname(cfg.checkpoint_path)
+        backups = [d for d in os.listdir(parent) if d.startswith("backup_")]
+        stats = os.listdir(os.path.join(cfg.plots_dir, "stats"))
+        csvs = [f for f in os.listdir(cfg.plots_dir)
+                if f.startswith("generated_facial_data_epoch_")]
+        check(os.path.exists(os.path.join(cfg.checkpoint_path, "meta.json"))
+              and len(backups) == 2 and os.path.exists(cfg.model_path)
+              and len(stats) == len(csvs) == 3,
+              f"(f) meta.json, {len(backups)} backups, model.pth, "
+              f"{len(csvs)} validation CSVs and {len(stats)} stats files")
+        model = load_model(cfg.model_path, Config(), device="cuda")
+        frames = generate_facial_data_from_bytes(
+            (test_set / "audio.wav").read_bytes(), model, Config())
+        check(isinstance(frames, np.ndarray) and frames.ndim == 2
+              and frames.shape[1] == 61 and bool(np.isfinite(frames).all()),
+              f"(f) the exported model.pth loads strictly and serves "
+              f"test_set/audio.wav: {frames.shape} finite frames")
+        for i, (sec, n) in enumerate(zip(history["epoch_seconds"],
+                                         history["epoch_samples"])):
+            print(f"(f) epoch {i + 1}: {sec:.3f} s, {n} samples, "
+                  f"{n / sec:.1f} samples/s as the loop counts them (step "
+                  f"(a) alone: {step_a['samples_per_s']:.1f} samples/s)",
+                  flush=True)
+        print(f"(f) first train_model call (data, init, 2 epochs, "
+              f"validation, checkpoints): {first_run:.3f} s", flush=True)
+
+        for async_save in (False, True):
+            path = os.path.join(tmp, f"save_{async_save}", "checkpoint")
+            t0 = time.perf_counter()
+            state_file = ckpt.save_checkpoint(resumed, 2, total, cfg, path,
+                                              async_save=async_save)
+            returned = time.perf_counter() - t0
+            ckpt.wait_for_pending_saves()
+            done = time.perf_counter() - t0
+            print(f"(f) {'async' if async_save else 'sync'} checkpoint save: "
+                  f"{os.path.getsize(state_file)} bytes, returned after "
+                  f"{returned:.3f} s, on disk after {done:.3f} s", flush=True)
+        print(f"(f) the planner's estimate for Config(): "
+              f"{estimate_step_hbm_bytes(Config())} bytes; step (a)'s "
+              f"measured peak {step_a['peak']} bytes", flush=True)
+        del state, resumed, model
+        torch.cuda.empty_cache()
+
+        cli_out = os.path.join(tmp, "cli")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "neurosync_trainer_lite_tpu_torch.train",
+             "--root_dir", data, "--n_epochs", "1",
+             "--max_steps_per_epoch", "2",
+             "--audio_path", cfg.audio_path,
+             "--ground_truth_path", cfg.ground_truth_path,
+             "--model_path", os.path.join(cli_out, "model.pth"),
+             "--checkpoint_path", os.path.join(cli_out, "ck", "checkpoint"),
+             "--plots_dir", os.path.join(cli_out, "plots")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        print(proc.stdout[-1500:], flush=True)
+        check(proc.returncode == 0
+              and os.path.exists(os.path.join(cli_out, "model.pth")),
+              f"(f) python -m neurosync_trainer_lite_tpu_torch.train, 1 epoch "
+              f"of 2 steps: exit {proc.returncode}, model.pth written, "
+              f"{time.perf_counter() - t0:.3f} s"
+              + (f"\n{proc.stderr[-3000:]}" if proc.returncode else ""))
+
+
 def attention_gradients_in_model(torch, cfg, weights, src, trg, *, composed,
                                  kernel, module, wrapper, planted,
                                  what) -> None:
     """An attention kernel's gradients inside the model: one step of cfg
     (dropout 0) at the `composed` impl, where attention takes the lean
     composed core, and at the `kernel` impl, where it takes the kernel
-    (`what`) forward and backward, from the same weights and batch, each
-    also held against the same step in fp32 at `composed` (plain autograd,
-    TF32 off). Their loss and pre-clip grad norm must agree.
+    (`what`) forward and backward, each held against the same step in fp32
+    at `composed`; a planted fault, the kernel's backward (module.wrapper)
+    losing head 0's dq, must be caught (gradients_in_model)."""
+    gradients_in_model(
+        torch, weights, src, trg,
+        fp32=(cfg.replace(attention_impl=composed, use_amp=False), []),
+        baseline=(f"'{composed}'", cfg.replace(attention_impl=composed), []),
+        kernel=(f"'{kernel}'", cfg.replace(attention_impl=kernel), []),
+        planted=(cfg.replace(attention_impl=kernel),
+                 [(module, wrapper, planted)]),
+        leaves=r"\.[qkv]_linear\.weight$",
+        leaf_kind="attention q/k/v weight", what=what,
+        fault="loses head 0's dq")
 
-    Per leaf, err = ‖g − g_fp32‖/‖g_fp32‖ of each attention q/k/v weight
-    gradient. bf16 elsewhere in the model sets a leaf's err at either impl
+
+def gradients_in_model(torch, weights, src, trg, *, fp32, baseline, kernel,
+                       planted, leaves, leaf_kind, what, fault) -> None:
+    """A kernel's gradients inside the model: one step (dropout 0) on the
+    `baseline` path, which does not run the kernel, and on the `kernel`
+    path, which does, from the same weights and batch, each also held
+    against the `fp32` step (plain autograd, TF32 off). Each path is (label,
+    cfg, patches), patches being (object, attribute, value) set for that
+    step only. Their loss and pre-clip grad norm must agree.
+
+    Per leaf (parameter names matching `leaves`), err = ‖g − g_fp32‖ /
+    ‖g_fp32‖. bf16 elsewhere in the model sets a leaf's err on either path
     (up to ~0.15 where a small gradient cancels), so the check reads the
-    excess err(kernel) − err(composed): the kernels do their math in fp32,
+    excess err(kernel) − err(baseline): the kernels do their math in fp32,
     so no leaf may lie further from fp32 with the kernel than without by
-    more than EXCESS_LIMIT. A planted fault, the kernel's backward
-    (module.wrapper) losing head 0's dq, must exceed it; the global grad
-    norm hides such a fault."""
+    more than EXCESS_LIMIT. The `planted` path (cfg, patches), a kernel
+    with a planted fault, must exceed it; the global grad norm hides such
+    a fault."""
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_train_step)
 
-    def one_step(impl, use_amp=True):
-        c = cfg.replace(attention_impl=impl, use_amp=use_amp)
-        state = init_train_state(c, 1000, device="cuda", state_dict=weights)
-        _, loss, norm = make_train_step(c)(state, src, trg,
-                                           torch.Generator().manual_seed(4))
-        loss, norm = float(loss), float(norm)
+    def one_step(c, patches):
+        saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        try:
+            state = init_train_state(c, 1000, device="cuda",
+                                     state_dict=weights)
+            _, loss, norm = make_train_step(c)(
+                state, src, trg, torch.Generator().manual_seed(4))
+            loss, norm = float(loss), float(norm)
+        finally:
+            for obj, name, value in saved:
+                setattr(obj, name, value)
         # the step clipped every gradient by min(1, clip / norm): undo it
         unclip = max(1.0, norm / c.grad_clip)
         grads = {name: p.grad * unclip
                  for name, p in state.model.named_parameters()
-                 if re.search(r"\.[qkv]_linear\.weight$", name)}
+                 if re.search(leaves, name)}
         del state
         torch.cuda.empty_cache()
         return loss, norm, grads
 
-    lc, lk = f"'{composed}'", f"'{kernel}'"
-    fp32 = one_step(composed, use_amp=False)
-    runs = {lc: one_step(composed), lk: one_step(kernel)}
-    sound = getattr(module, wrapper)
-    setattr(module, wrapper, planted)
-    try:
-        runs[f"{lk}, planted fault"] = one_step(kernel)
-    finally:
-        setattr(module, wrapper, sound)
-
+    lc, lk = baseline[0], kernel[0]
+    ref = one_step(*fp32)
+    runs = {lc: one_step(*baseline[1:]), lk: one_step(*kernel[1:]),
+            f"{lk}, planted fault": one_step(*planted)}
     err = {label: {n: float((grads[n] - g).norm() / g.norm())
-                   for n, g in fp32[2].items()}
+                   for n, g in ref[2].items()}
            for label, (_, _, grads) in runs.items()}
     excess = {}
     for label, (loss, norm, _) in runs.items():
@@ -1069,8 +1376,8 @@ def attention_gradients_in_model(torch, cfg, weights, src, trg, *, composed,
         excess[label] = max((e - err[lc][n], n)
                             for n, e in err[label].items())
         print(f"one step at dropout 0, bf16 at {label}: loss {loss:.6f}, "
-              f"grad norm {norm:.6f} (fp32: {fp32[0]:.6f}, {fp32[1]:.6f}); "
-              f"attention q/k/v weight gradients against fp32: worst err "
+              f"grad norm {norm:.6f} (fp32: {ref[0]:.6f}, {ref[1]:.6f}); "
+              f"{leaf_kind} gradients against fp32: worst err "
               f"{err[label][worst]:.3e} ({worst}), worst excess over {lc} "
               f"{excess[label][0]:.3e} ({excess[label][1]})", flush=True)
     (la, na, _), (lp, np_, _) = runs[lc], runs[lk]
@@ -1080,13 +1387,13 @@ def attention_gradients_in_model(torch, cfg, weights, src, trg, *, composed,
           f"loss ({loss_gap:.3e}) and 1e-2 in grad norm ({norm_gap:.3e})")
     sound_gap = excess[lk][0]
     check(sound_gap <= EXCESS_LIMIT,
-          f"one step at dropout 0: no attention q/k/v weight gradient lies "
-          f"further from fp32 at {lk} ({what}) than at {lc} by more than "
+          f"one step at dropout 0: no {leaf_kind} gradient lies further "
+          f"from fp32 at {lk} ({what}) than at {lc} by more than "
           f"{EXCESS_LIMIT:g} ({sound_gap:.3e})")
     fault_gap = excess[f"{lk}, planted fault"][0]
     fault_norm = runs[f"{lk}, planted fault"][1]
     check(fault_gap > EXCESS_LIMIT,
-          f"a {what} backward that loses head 0's dq fails that check "
+          f"a {what} backward that {fault} fails that check "
           f"({fault_gap:.3e}; its grad norm moves "
           f"{abs(fault_norm - np_) / np_:.3e})")
 
@@ -1166,13 +1473,21 @@ def main() -> int:
                       "1e-5*max|plain| (fp32)",
             launch_names=["flash_attention_bwd_dq",
                           "flash_attention_bwd_dkdv"]),
+        "ffn_bwd_dh1": dict(
+            route="cuda", source=source + "ffn_bwd.cu",
+            replaces="neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py:115",
+            tolerance="dh1 2^-7*|plain|+1e-5*max|plain|; db2, db1 "
+                      "2e-4*max|plain|"),
     }
     rounding_contracts(torch)
     kernel_checks(torch, records)
     k3_checks(torch, records)
+    k2_checks(torch, records)
     reference_goldens(torch, np)
     paths = {"serve": serve(torch, np), "serve (s2)": serve_long(torch, np)}
-    paths.update(train(torch))
+    train_paths, step_a = train(torch)
+    paths.update(train_paths)
+    train_entry_point(torch, np, step_a)
     for counts in paths.values():   # the K3 backward's two kernels
         check(counts.get("flash_attention_bwd_dq", 0)
               == counts.get("flash_attention_bwd_dkdv", 0),

@@ -171,6 +171,45 @@ class _FfnLeanCore(torch.autograd.Function):
         return dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None
 
 
+def lean_ffn_mask(module, x, seed):
+    """(keep, scale) for a lean FFN core, or None where the plain composition
+    runs: the lean cores take bf16 training only, and rate ≈ 1.0 (which drops
+    everything) goes plain. keep is None at rate 0; otherwise it is the plain
+    path's draw (same seed, shape and threshold), so every path drops the
+    same elements. scale is the unrounded 256 / (256 - q)."""
+    if x.dtype != torch.bfloat16 or seed is None:
+        return None
+    q = dropout_mask_q(module.rate)
+    if q >= 256:
+        return None
+    if q <= 0:
+        return None, 1.0
+    keep = dropout_keep(seed, (*x.shape[:-1], module.linear1.weight.shape[0]),
+                        q, x.device)
+    return keep, 256.0 / (256 - q)
+
+
+def ffn_plain(module, x, seed):
+    """linear → relu → dropout → linear, plain autograd."""
+    h = torch.relu(module.linear1(x))
+    return module.linear2(dropout(h, module.rate, seed, seed is not None))
+
+
+def _ffn(module, x, seed=None):
+    """ReLU FFN with dropout after the activation (JAX models/seq2seq._ffn).
+    bf16 training takes the lean core, which scales by the bf16-rounded
+    scale, as JAX's. FeedForward.forward calls it through this module's
+    global, so a caller may route the FFN elsewhere by rebinding
+    seq2seq._ffn (ops/ffn_bwd.py:ffn_fused takes kernel K2)."""
+    lean = lean_ffn_mask(module, x, seed)
+    if lean is None:
+        return ffn_plain(module, x, seed)
+    keep, scale = lean
+    return _FfnLeanCore.apply(x, module.linear1.weight, module.linear1.bias,
+                              module.linear2.weight, module.linear2.bias, keep,
+                              _bf16_value(scale))
+
+
 class FeedForward(nn.Module):
     def __init__(self, hidden: int, ffn_dim: int, device, rate: float = 0.0):
         super().__init__()
@@ -179,24 +218,7 @@ class FeedForward(nn.Module):
         self.linear2 = Linear(ffn_dim, hidden, device)
 
     def forward(self, x, seed=None):
-        """ReLU FFN with dropout after the activation. bf16 training takes
-        the lean core, whose mask is the plain path's draw (same seed, shape
-        and threshold), so both paths drop the same elements."""
-        train = seed is not None
-        if x.dtype == torch.bfloat16 and train:
-            q = dropout_mask_q(self.rate)
-            if q < 256:  # rate ≈ 1.0 drops everything: the plain path
-                keep, scale = None, 1.0
-                if q > 0:
-                    keep = dropout_keep(
-                        seed, (*x.shape[:-1], self.linear1.weight.shape[0]), q,
-                        x.device)
-                    scale = _bf16_value(256.0 / (256 - q))
-                return _FfnLeanCore.apply(
-                    x, self.linear1.weight, self.linear1.bias,
-                    self.linear2.weight, self.linear2.bias, keep, scale)
-        h = torch.relu(self.linear1(x))
-        return self.linear2(dropout(h, self.rate, seed, train))
+        return _ffn(self, x, seed)
 
 
 class EncoderLayer(nn.Module):

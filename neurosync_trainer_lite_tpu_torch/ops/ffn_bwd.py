@@ -1,0 +1,135 @@
+"""K2: the fused FFN backward (dh1, db2, db1) and the FFN core that uses it.
+
+Port of neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py (ffn_bwd_dh1,
+ffn_lean_core_fused, ffn_fused). The kernel is csrc/ffn_bwd.cu (its head
+note says what bounds it on the H100 and how its design answers that):
+
+    dh1 = where(am > 0, (dy · W) · scale, 0)   fp32, rounded once to dy's type
+    db2 = Σ_rows dy                            fp32
+    db1 = Σ_rows of the fp32 dh1, before its rounding
+
+W is torch's linear2.weight [H, F], so dh1 = dy · W with no transpose (the
+JAX kernel reads its [F, H] w2 "natively", contracting H). scale is the
+fp32 inverted-dropout scale 256 / (256 - q): the forward's am was scaled by
+its bf16 rounding, the epilogue multiplies by the unrounded value, as the
+Pallas body does with its static Python float. CPU tensors take the plain
+version; CUDA tensors launch the kernel (bf16 only) or raise.
+
+As in the JAX package, no configuration reaches K2: the bf16 training step
+goes through it where a caller routes the model's FFN through ffn_fused,
+
+    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    seq2seq._ffn = ffn_bwd.ffn_fused
+
+as tools/tpu_probe.py does for the JAX model. The Pallas tile (FFN_BWD_BM)
+and its bias-partial ablation (FFN_BWD_WITH_BIAS) are TPU tuning knobs and
+are ported as semantics only: the kernel always writes the partials.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+    _FfnLeanCore,
+    ffn_plain,
+    lean_ffn_mask,
+)
+from neurosync_trainer_lite_tpu_torch.ops import kernels
+from neurosync_trainer_lite_tpu_torch.ops.attention import _bf16_value, _mm_f32
+
+#: rows of csrc/ffn_bwd.cu's output tile, so the partial sums' row count is
+#: ceil(M / ROW_TILE); the kernel refuses any other
+ROW_TILE = 128
+
+
+def ffn_bwd_dh1_plain(dy, w2, am, *, scale: float):
+    """dy [M, H], w2 [H, F], am [M, F] → (dh1 [M, F] in dy's type, db2 [H]
+    fp32, db1 [F] fp32), with the kernel's rounding points."""
+    dh1f = torch.where(am.float() > 0, _mm_f32(dy, w2) * scale, 0.0)
+    return dh1f.to(dy.dtype), dy.float().sum(0), dh1f.sum(0)
+
+
+def kernel_limits(ref):
+    """Elementwise bounds on |kernel − plain| for a plain (dh1, db2, db1).
+    dh1: one bf16 ulp of the plain value (2^-7 of it) plus 1e-5 of the
+    largest, where the tensor cores' fp32 sums, taken in another order,
+    round to the neighbouring bf16 value or cancel; the fp32 column sums:
+    2e-4 of the largest (the same terms summed in another order)."""
+    dh1, db2, db1 = (t.float() for t in ref)
+    return (2.0 ** -7 * dh1.abs() + 1e-5 * dh1.abs().max(),
+            2e-4 * db2.abs().max().expand_as(db2),
+            2e-4 * db1.abs().max().expand_as(db1))
+
+
+def ffn_bwd_dh1_cuda(dy, w2, am, *, scale: float):
+    """Launch csrc/ffn_bwd.cu; raises on anything it does not take."""
+    if not (dy.is_cuda and w2.device == dy.device and am.device == dy.device):
+        raise ValueError("ffn_bwd_dh1 needs its tensors on one CUDA device")
+    if not all(t.dtype == torch.bfloat16 for t in (dy, w2, am)):
+        raise TypeError(f"ffn_bwd_dh1 (kernel K2) takes bf16, got "
+                        f"{[t.dtype for t in (dy, w2, am)]}")
+    if dy.dim() != 2 or w2.dim() != 2 or am.dim() != 2:
+        raise ValueError("ffn_bwd_dh1: dy [M, H], w2 [H, F], am [M, F]")
+    m, h = dy.shape
+    f = w2.shape[1]
+    if w2.shape != (h, f) or am.shape != (m, f):
+        raise ValueError(f"ffn_bwd_dh1: shapes {tuple(dy.shape)}, "
+                         f"{tuple(w2.shape)}, {tuple(am.shape)}")
+    dy, w2, am = dy.contiguous(), w2.contiguous(), am.contiguous()
+    dh1 = torch.empty(m, f, dtype=dy.dtype, device=dy.device)
+    tiles = -(-m // ROW_TILE)
+    db2p = torch.empty(tiles, h, dtype=torch.float32, device=dy.device)
+    db1p = torch.empty(tiles, f, dtype=torch.float32, device=dy.device)
+    status = kernels.library("ffn_bwd").ffn_bwd_dh1(
+        dy.data_ptr(), w2.data_ptr(), am.data_ptr(), dh1.data_ptr(),
+        db2p.data_ptr(), db1p.data_ptr(), m, h, f, tiles, float(scale),
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    kernels.check_launch(status, "ffn_bwd_dh1")
+    return dh1, db2p.sum(0), db1p.sum(0)
+
+
+def ffn_bwd_dh1(dy, w2, am, *, scale: float):
+    """The fused (dh1, db2, db1): the plain version on CPU tensors, the
+    kernel on CUDA tensors."""
+    if dy.device.type == "cpu":
+        return ffn_bwd_dh1_plain(dy, w2, am, scale=scale)
+    return ffn_bwd_dh1_cuda(dy, w2, am, scale=scale)
+
+
+class _FfnLeanCoreFused(torch.autograd.Function):
+    """models/seq2seq._FfnLeanCore with K2 in its backward. The forward is
+    _FfnLeanCore's, with am scaled by the bf16-rounded scale: bit-identical.
+    The backward takes (dh1, db2, db1) from ffn_bwd_dh1 at the fp32 scale;
+    dw2, dw1 and dx stay products with fp32 outputs (_mm_f32), as JAX keeps
+    them XLA einsums."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, keep, scale):
+        y = _FfnLeanCore.forward(ctx, x, w1, b1, w2, b2, keep,
+                                 _bf16_value(scale))
+        ctx.scale = scale
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, am, w1c, w2c = ctx.saved_tensors
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dh1, db2, db1 = ffn_bwd_dh1(dy2, w2c, am, scale=ctx.scale)
+        dw2 = _mm_f32(dy2.t(), am)
+        dw1 = _mm_f32(dh1.t(), x2)
+        dx = _mm_f32(dh1, w1c).to(dy.dtype)
+        return dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None
+
+
+def ffn_fused(module, x, seed=None):
+    """models/seq2seq._ffn with the K2 core on the bf16 training path: the
+    same gates and the same shared mask draw (lean_ffn_mask), so a step
+    routed here drops the elements the default step drops."""
+    lean = lean_ffn_mask(module, x, seed)
+    if lean is None:
+        return ffn_plain(module, x, seed)
+    keep, scale = lean
+    return _FfnLeanCoreFused.apply(
+        x, module.linear1.weight, module.linear1.bias, module.linear2.weight,
+        module.linear2.bias, keep, scale)

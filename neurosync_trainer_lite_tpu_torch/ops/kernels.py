@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("rope", "fused_attention", "flash_attention")
+SOURCES = ("rope", "fused_attention", "flash_attention", "ffn_bwd")
 # -Xptxas -v: the build log lists each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +55,9 @@ _ARGTYPES = {
         "flash_attention_bwd_dkdv": [
             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I,
             _P]},
+    "ffn_bwd": {
+        "ffn_bwd_dh1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        ctypes.c_float, _P]},
 }
 
 

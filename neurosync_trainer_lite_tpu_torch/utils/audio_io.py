@@ -1,7 +1,8 @@
 """Audio decoding and encoding without librosa (the port's own copy).
 
-The WAV, float-WAV and ffmpeg decoders, resampling and the in-memory WAV
-writer of neurosync_trainer_lite_tpu/utils/audio_io.py:
+The WAV, float-WAV and ffmpeg decoders, resampling, the path and bytes
+loaders and the WAV writers of neurosync_trainer_lite_tpu/utils/audio_io.py
+(playback is not ported yet):
 
 - PCM WAV (8/16/24/32-bit int) decoded with the stdlib ``wave`` module and
   numpy, IEEE-float WAV (32/64-bit) by a RIFF chunk walk.
@@ -124,23 +125,41 @@ def load_audio(source, sr: int = 88200, ffmpeg_path: str = "ffmpeg"
     return resample(y, native_sr, sr), sr
 
 
-def load_audio_from_bytes(audio_bytes: bytes, sr: int = 88200
-                          ) -> tuple[np.ndarray, int]:
-    """Bytes → peak-normalized mono float32 at sr (reference: load_audio.py:23-32)."""
-    y, sr = load_audio(audio_bytes, sr)
+def load_and_preprocess_audio(audio_path, sr: int = 88200
+                              ) -> tuple[np.ndarray, int]:
+    """Path → peak-normalized mono float32 at sr (reference: load_audio.py:6-16)."""
+    return _peak_normalized(*load_audio(audio_path, sr))
+
+
+def _peak_normalized(y: np.ndarray, sr: int) -> tuple[np.ndarray, int]:
     max_val = np.max(np.abs(y)) if y.size else 0.0
     if max_val > 0:
         y = y / max_val
     return y, sr
 
 
-def audio_to_bytes(y: np.ndarray, sr: int) -> bytes:
-    """float waveform → in-memory WAV bytes (reference: save_audio.py:23-34)."""
-    buf = io.BytesIO()
+def load_audio_from_bytes(audio_bytes: bytes, sr: int = 88200
+                          ) -> tuple[np.ndarray, int]:
+    """Bytes → peak-normalized mono float32 at sr (reference: load_audio.py:23-32)."""
+    return _peak_normalized(*load_audio(audio_bytes, sr))
+
+
+def _write_wav(target, y: np.ndarray, sr: int) -> None:
     pcm = np.clip(np.asarray(y, np.float64) * 32767.0, -32768, 32767).astype("<i2")
-    with wave.open(buf, "wb") as w:
+    with wave.open(target, "wb") as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.tobytes())
+
+
+def save_audio_file(y: np.ndarray, sr: int, output_path: str) -> None:
+    """float waveform → 16-bit PCM WAV file (reference: save_audio.py:7-20)."""
+    _write_wav(output_path, y, sr)
+
+
+def audio_to_bytes(y: np.ndarray, sr: int) -> bytes:
+    """float waveform → in-memory WAV bytes (reference: save_audio.py:23-34)."""
+    buf = io.BytesIO()
+    _write_wav(buf, y, sr)
     return buf.getvalue()

@@ -1,8 +1,10 @@
-"""LiveLink-format CSV export (the port's own copy, with the csv module).
+"""LiveLink-format CSV export and offline CSV utilities (the port's own
+copy of neurosync_trainer_lite_tpu/utils/csv_io.py, with the csv module and
+numpy, so no pandas is needed).
 
-Same file as neurosync_trainer_lite_tpu/utils/csv_io.py:save_generated_data_as_csv
-writes: Timecode (HH:mm:ss:ff.mmm at 60 fps), BlendshapeCount and the 61
-named ARKit blendshape columns, plus 7 optional emotion columns.
+save_generated_data_as_csv writes the JAX package's file: Timecode
+(HH:mm:ss:ff.mmm at 60 fps), BlendshapeCount and the 61 named ARKit
+blendshape columns, plus 7 optional emotion columns.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ BASE_COLUMNS = [
 
 EMOTION_COLUMNS = ["Angry", "Disgusted", "Fearful", "Happy", "Neutral",
                    "Sad", "Surprised"]
+
+DIMENSION_LABELS = BASE_COLUMNS[2:]  # the 61 blendshape names in order
 
 
 def make_timecode(i: int, frame_rate: int = 60) -> str:
@@ -65,3 +69,106 @@ def save_generated_data_as_csv(generated, output_path: str,
             writer.writerow([make_timecode(i), data.shape[1],
                              *(repr(float(v)) for v in row)])
     print(f"Generated data saved to {output_path}")
+
+
+def read_csv_rows(path: str) -> tuple[list[str], list[list[str]]]:
+    """A CSV file → (header, rows of cell strings)."""
+    with open(path, newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        return header, [row for row in reader if row]
+
+
+def read_columns(path: str, start: int, stop: int) -> np.ndarray:
+    """Columns [start, stop) of a CSV (by position, as pandas' iloc; fewer
+    where the file has fewer) as float64 [rows, columns]."""
+    header, _ = read_csv_rows(path)
+    cols = list(range(start, min(stop, len(header))))
+    return np.loadtxt(path, delimiter=",", skiprows=1, usecols=cols,
+                      dtype=np.float64, ndmin=2)
+
+
+def pad_data(a: np.ndarray, b: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Zero-pad the shorter of two [rows, ...] arrays to the longer's row
+    count (reference: plot_comparison.py:5-15)."""
+    n = max(len(a), len(b))
+
+    def pad(x):
+        if len(x) == n:
+            return x
+        return np.concatenate([x, np.zeros((n - len(x),) + x.shape[1:],
+                                           dtype=x.dtype)])
+
+    return pad(a), pad(b)
+
+
+def plot_comparison(ground_truth_path: str, generated_path: str,
+                    output_image_path: str,
+                    features_to_plot=("JawOpen",)) -> None:
+    """Overlay plot of ground truth vs generated, first 512 frames
+    (reference: plot_comparison.py:17-45). Skipped, with one warning for the
+    process, where matplotlib is not installed."""
+    from neurosync_trainer_lite_tpu_torch.utils.plots import pyplot
+
+    plt = pyplot()
+    if plt is None:
+        return
+    gt_header, gt_rows = read_csv_rows(ground_truth_path)
+    gen_header, gen_rows = read_csv_rows(generated_path)
+
+    def column(header, rows, name, kind=float):
+        return np.array([kind(row[header.index(name)]) for row in rows])
+
+    # padded rows read 0, as in pandas' zero-padded frames
+    timecodes, _ = pad_data(column(gt_header, gt_rows, "Timecode", str),
+                            np.zeros(len(gen_rows)))
+    plt.figure(figsize=(20, 20))
+    for feature in features_to_plot:
+        truth, generated = pad_data(column(gt_header, gt_rows, feature),
+                                    column(gen_header, gen_rows, feature))
+        plt.plot(timecodes[:512].astype(str), truth[:512],
+                 label=f"Ground Truth {feature}")
+        plt.plot(timecodes[:512].astype(str), generated[:512],
+                 label=f"Generated {feature}", linestyle="dashed")
+    plt.legend()
+    plt.xticks(rotation=45)
+    plt.xlabel("Timecode")
+    plt.ylabel("Feature Value")
+    plt.title("Comparison of Ground Truth and Generated Facial Features")
+    plt.tight_layout()
+    plt.savefig(output_image_path, dpi=100)
+    plt.close()
+    print(f"Comparison plot saved to {output_image_path}")
+
+
+def split_csv_by_frames(input_csv_path: str, output_dir: str,
+                        num_chunks: int = 4) -> list[str]:
+    """Offline utility: split a capture CSV into chunks (reference:
+    split_csv.py:7-38, its quirks kept: when the row count is not a multiple
+    of num_chunks the rows are first mirror-padded to one, but chunk_size
+    stays floor(pre-pad rows / num_chunks), so the last chunk takes every
+    padded and remainder row)."""
+    import os
+
+    header, rows = read_csv_rows(input_csv_path)
+    total = len(rows)
+    chunk_size = total // num_chunks
+    remainder = total % num_chunks
+    if remainder != 0:
+        rows = rows + rows[-(num_chunks - remainder):][::-1]
+    total = len(rows)
+
+    os.makedirs(output_dir, exist_ok=True)
+    paths = []
+    for i in range(num_chunks):
+        start = i * chunk_size
+        end = (i + 1) * chunk_size if i < num_chunks - 1 else total
+        path = os.path.join(
+            output_dir,
+            f"{os.path.basename(input_csv_path)[:-4]}_part{i + 1}.csv")
+        with open(path, "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(header)
+            writer.writerows(rows[start:end])
+        paths.append(path)
+    return paths

@@ -1,5 +1,5 @@
-"""Kernels K1, K4 and K3 (forward and backward) on the card, against their
-plain versions.
+"""Kernels K1, K4, K3 (forward and backward) and K2 on the card, against
+their plain versions.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
 nothing of JAX, so they run on a machine with the card alone:
@@ -24,6 +24,8 @@ from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
     MultiHeadAttention,
     init_seq2seq,
 )
+from neurosync_trainer_lite_tpu_torch.models import seq2seq
+from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops import kernels
@@ -339,3 +341,63 @@ def test_long_window_train_step_on_the_card_matches_the_cpu(gen, remat):
                         "flash_attention": again * attn,
                         "flash_attention_bwd_dq": attn,
                         "flash_attention_bwd_dkdv": attn}
+
+
+FFN_SHAPES = [  # M, H, F
+    (96, 64, 192),          # the JAX test's shape: one partial tile each way
+    (300, 136, 520),        # ragged row, depth and column tiles
+    (257, 1024, 4096),      # the training widths, M one past two row tiles
+    (33, 20, 70),           # H, F not multiples of 8: the scalar loads
+]
+
+
+@pytest.mark.parametrize("M,H,F", FFN_SHAPES)
+@pytest.mark.parametrize("scale", [1.0, 256 / 179])
+def test_ffn_bwd_kernel_matches_plain(gen, M, H, F, scale):
+    bf16 = torch.bfloat16
+    dy = _randn(gen, M, H, dtype=bf16)
+    w = (_randn(gen, H, F) * 0.05).to(bf16)
+    am = torch.relu(_randn(gen, M, F) - 0.3).to(bf16)
+    out = ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale)
+    torch.cuda.synchronize()
+    ref = ffn_bwd.ffn_bwd_dh1_plain(dy, w, am, scale=scale)
+    for name, a, b, limit in zip(("dh1", "db2", "db1"), out, ref,
+                                 ffn_bwd.kernel_limits(ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= limit).all()), (name, diff.max().item())
+    again = ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # no atomics
+
+
+def test_ffn_bwd_refusals(gen):
+    x = _randn(gen, 8, 16, dtype=torch.bfloat16)
+    w = _randn(gen, 16, 32, dtype=torch.bfloat16)
+    am = _randn(gen, 8, 32, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="K2"):
+        ffn_bwd.ffn_bwd_dh1_cuda(x.float(), w.float(), am.float(), scale=1.0)
+    with pytest.raises(ValueError, match="shapes"):
+        ffn_bwd.ffn_bwd_dh1_cuda(x, w, am[:, :16], scale=1.0)
+
+
+def test_ffn_fused_step_on_the_card_runs_k2(gen, monkeypatch):
+    """A tiny bf16 step at dropout 0.3 routed through ffn_fused: K2 once per
+    FFN; its loss bitwise the default step's (the same masks and forward),
+    its grad norm within 2e-2."""
+    cfg = Config(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
+                 output_dim=7, dropout=0.3, use_amp=True)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    src, trg = _randn(gen, 4, 24, 32), _randn(gen, 4, 24, 7)
+    runs = {}
+    for name, fn in (("default", seq2seq._ffn), ("fused", ffn_bwd.ffn_fused)):
+        monkeypatch.setattr(seq2seq, "_ffn", fn)
+        state = init_train_state(cfg, 5, device="cuda", state_dict=weights)
+        kernels.reset_launches()
+        _, loss, norm = make_train_step(cfg)(state, src, trg,
+                                             torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        runs[name] = (float(loss), float(norm),
+                      kernels.LAUNCHES["ffn_bwd_dh1"])
+    assert runs["default"][2] == 0 and runs["fused"][2] == 2 + 2
+    assert runs["fused"][0] == runs["default"][0]
+    assert runs["fused"][1] == pytest.approx(runs["default"][1], rel=2e-2)

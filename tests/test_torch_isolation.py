@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no JAX, no JAX package, no silent CPU.
 
 The port (neurosync_trainer_lite_tpu_torch) must import neither jax (nor
-optax, which imports it) nor anything of neurosync_trainer_lite_tpu, and its entry points must run on the
-CUDA card unless the caller asks for the CPU.
+optax, which imports it) nor anything of neurosync_trainer_lite_tpu, nor
+pandas or matplotlib (a CUDA host may lack both), and its entry points
+must run on the CUDA card unless the caller asks for the CPU.
 """
 
 import os
@@ -34,6 +35,9 @@ from neurosync_trainer_lite_tpu_torch.ops.frontend import (
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
 from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import rope_rotate_cuda
+from neurosync_trainer_lite_tpu_torch.ops.ffn_bwd import ffn_bwd_dh1_cuda
+from neurosync_trainer_lite_tpu_torch.train import main as train_main
+from neurosync_trainer_lite_tpu_torch.training.loop import train_model
 from neurosync_trainer_lite_tpu_torch.training.step import init_train_state
 from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
 from neurosync_trainer_lite_tpu_torch.utils.weights import load_model
@@ -50,12 +54,16 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(n for n in sys.modules
-             if n in ("jax", "jaxlib", "optax", "neurosync_trainer_lite_tpu")
+             if n in ("jax", "jaxlib", "optax", "neurosync_trainer_lite_tpu",
+                      "pandas", "matplotlib")
              or n.startswith(("jax.", "jaxlib.", "optax.",
-                              "neurosync_trainer_lite_tpu.")))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15
-         or pkg.__name__ + ".ops.flash_attention" not in names else 0)
+                              "neurosync_trainer_lite_tpu.", "pandas.",
+                              "matplotlib.")))
+need = [pkg.__name__ + m for m in (".ops.flash_attention", ".ops.ffn_bwd",
+                                   ".training.loop", ".train")]
+print(len(names), bad, [m for m in need if m not in names])
+sys.exit(1 if bad or len(names) < 15 or any(m not in names for m in need)
+         else 0)
 """
 
 
@@ -108,6 +116,8 @@ ENTRY_POINTS = {
         audio_to_bytes(np.zeros(44100), 88200), _cpu_model(), CFG),
     "init_train_state": lambda: init_train_state(
         CFG, 1, generator=torch.Generator()),
+    "train_model": lambda: train_model(CFG),
+    "train.main": lambda: train_main(["--tiny"]),
 }
 
 
@@ -139,3 +149,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(x4, x4, x4, 0.25)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd_cuda(x4, x4, x4, x4, 0.25)
+    xb = torch.zeros(8, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ffn_bwd_dh1_cuda(xb, xb.t().contiguous(), torch.zeros(
+            8, 8, dtype=torch.bfloat16), scale=1.0)
