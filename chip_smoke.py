@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port's serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only serve-s2   # phases 1, 2 and 7b alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -24,21 +25,23 @@ exits non-zero before its result line.
    in bf16 and fp32 (the forward's bound plus 1e-4 of the largest
    gradient). K1 again at the long windows' [32, 512, 1024] and
    [8, 2048, 1024] (bitwise); K3 forward and backward at (c)
-   [32, 16, 512, 64], (d) [8, 16, 2048, 64] and a ragged cross-length
-   [2, 4, 96 | 192, 32], bf16 (2^-7·|plain| + 2^-9·max|plain|) and fp32
-   (1e-5·max|plain|), the backward bitwise repeatable; K2 (the fused FFN
+   [32, 16, 512, 64], (d) [8, 16, 2048, 64], (s2) [4, 16, 512, 64] and a
+   ragged cross-length [2, 4, 96 | 192, 32], bf16 (the tensor-core
+   kernels; 2^-7·|plain| + 2^-9·max|plain|) and fp32 (the CUDA-core ones;
+   1e-5·max|plain|), the backward bitwise repeatable; K2 (the fused FFN
    backward) at step (a)'s [16384, 1024, 4096] at scale 1 and 256/179, the
    ragged [96, 64, 192] and [1000, 1024, 4096] (dh1 2^-7·|plain| +
    1e-5·max|plain|, db2 and db1 2e-4·max|plain|), bitwise repeatable.
 5. Times each kernel and its plain version (median of CUDA graph replays,
    so host launch overhead is excluded) beside the least time the card
    could take for the same work: K1 and the K4 forward at the serving
-   shape, the K4 backward at the training shape, K3 at (c) and (d) with
-   scaled_dot_product_attention (forward; backward alone, and forward +
-   backward beside it) as the library yardstick, which the port never
+   shape, the K4 backward at the training shape, K3 at (c), (d) and (s2)
+   with scaled_dot_product_attention (forward; backward alone, and forward
+   + backward beside it) as the library yardstick, which the port never
    calls, and K2 at (a)'s shape beside cuBLAS's dy·W alone. A bound
-   charges products with bf16 operands at the tensor cores' peak and all
-   other operations at the fp32 CUDA cores'.
+   charges the products a kernel runs on the tensor cores at their peak
+   (K3's backward: all five, split-bf16) and all other operations at the
+   fp32 CUDA cores'; K3 also prints its exps' time on the MUFU.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -54,7 +57,7 @@ exits non-zero before its result line.
    from torch.profiler. Then (s2) the same request at frame_size=512
    (4 chunks): K3 forward 24 and K1 50 launches a request at 'auto' and
    'pallas', [1801, 61] finite, within 5% of 'xla' (the composed path),
-   with the same timings.
+   with the same timings, 'xla' timed too: the same request without K3.
 8. Trains the full-width model (16,384 frames a step, seeded random
    features and targets, the same seeded weights): (a) Config(): 'auto',
    dropout 0.3; (b) 'pallas', dropout 0, which runs the K4 forward and
@@ -65,8 +68,10 @@ exits non-zero before its result line.
    K4 backward = 24 at (b); K1 = 100, K3 forward 24 and backward 24 + 24
    at (c)). Prints samples/s (median and quartiles of 10 steps after 3
    warm-up steps), peak device memory, and the card's busy share and top
-   kernels of one profiled step. Then each attention kernel's gradients
-   inside the model (attention_gradients_in_model): one step at dropout 0
+   kernels of one profiled step; at (c) K3's share of the device time,
+   which must all be the tensor-core kernels'. Then each attention
+   kernel's gradients inside the model (attention_gradients_in_model):
+   one step at dropout 0
    with the kernel and with the composed path ((b) against 'auto', (c)
    against 'xla') from the same weights and batch agree within 1e-3 in
    loss and 1e-2 in the pre-clip grad norm, and no attention q/k/v weight
@@ -104,6 +109,7 @@ the result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import re
@@ -117,11 +123,15 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+#: exp2 on the MUFU: 132 SMs x 16 a clock x 1.98 GHz boost (H100 SXM)
+EXP_PER_S = 132 * 16 * 1.98e9
 SERVE_SECONDS = 30             # the timed request: a seeded int16 WAV
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
-#: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8
-K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64)}
+#: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
+#: (s2) the 30 s request at frame_size 512 (4 chunks)
+K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64),
+             "s2": (4, 16, 512, 64)}
 #: (M, H, F) K2 gets at step (a) (128 x 128 rows, hidden 1024, FFN 4096),
 #: the JAX test's ragged shape, and M off the kernel's 128-row tile
 K2_SHAPES = [(16384, 1024, 4096), (96, 64, 192), (1000, 1024, 4096)]
@@ -241,7 +251,9 @@ def print_ptxas_summary(log: str) -> None:
         if m and name:
             short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel|"
                            r"flash_fwd_kernel|flash_bwd_dq_kernel|"
-                           r"flash_bwd_dkdv_kernel|ffn_bwd_kernel)",
+                           r"flash_bwd_dkdv_kernel|flash_fwd_mma_kernel|"
+                           r"flash_bwd_dq_mma_kernel|"
+                           r"flash_bwd_dkdv_mma_kernel|ffn_bwd_kernel)",
                            r"\1", name)
             print(f"ptxas: {short[:48]}: {m.group(1)} registers, {spills}",
                   flush=True)
@@ -551,8 +563,12 @@ def k3_checks(torch, records):
         item = q.element_size()
         # forward: q·kᵀ and p·v (2h flops a pair each) have bf16 operands,
         # p being rounded to v's type first; softmax ~5 a pair. Backward:
-        # s = q·kᵀ and dp = dO·vᵀ have bf16 operands, pᵀ·dO, ds·k and dsᵀ·q
-        # an fp32 one (p and ds stay fp32); softmax, D and ds ~10 a pair
+        # the five products (s = q·kᵀ, dp = dO·vᵀ, pᵀ·dO, ds·k, dsᵀ·q) all
+        # at the tensor cores' peak, which the split-bf16 kernels run them
+        # on; softmax, D and ds ~10 a pair. `split_bound_ms`: the three
+        # fp32-operand products on the CUDA cores instead, as counted
+        # before the tensor-core kernels. `exp_ms`: the exps the kernels
+        # take (2 a pair forward, 3 backward) on the MUFU alone.
         with torch.no_grad():
             fwd = dict(
                 ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, scale),
@@ -562,14 +578,17 @@ def k3_checks(torch, records):
                 library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v), iters=iters),
                 bf16_flops=4 * pairs * h, flops=5 * pairs,
-                bytes=4 * q.numel() * item)
+                bytes=4 * q.numel() * item, exps=2 * pairs)
             bwd = dict(
                 ms=device_ms(lambda: fa.flash_attention_bwd_cuda(
                     q, k, v, do, scale), iters=iters),
                 plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, do, scale), iters=max(2, iters // 2)),
-                bf16_flops=4 * pairs * h, flops=6 * pairs * h + 10 * pairs,
-                bytes=7 * q.numel() * item)
+                bf16_flops=10 * pairs * h, flops=10 * pairs,
+                bytes=7 * q.numel() * item, exps=3 * pairs,
+                split_bound_ms=bound(7 * q.numel() * item,
+                                     6 * pairs * h + 10 * pairs,
+                                     4 * pairs * h)[0])
         # SDPA's backward alone, replayed like the kernel's: its kernels run
         # on the stream of their forward, so the forward runs on the stream
         # the graph captures
@@ -588,6 +607,7 @@ def k3_checks(torch, records):
             every = rec["flops"] + rec["bf16_flops"]
             rec["fp32_bound_ms"] = bound(rec["bytes"], every)[0]
             rec["tensor_core_bound_ms"] = every / BF16_FLOP_PER_S * 1e3
+            rec["exp_ms"] = rec["exps"] / EXP_PER_S * 1e3
             rec["shape"] = [B, N, T, h]
         timed[label] = (fwd, bwd)
         for name, rec in (("flash_attention", fwd),
@@ -600,9 +620,12 @@ def k3_checks(torch, records):
                   + (f" (forward + backward {rec['library_fwd_bwd_ms']:.6f} "
                      f"ms, CUDA events)" if rec is bwd else "")
                   + f", bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
-                  f"bf16 products on tensor cores), every operation on fp32 "
+                  f"products on tensor cores), every operation on fp32 "
                   f"CUDA cores {rec['fp32_bound_ms']:.6f} ms, on tensor cores "
-                  f"{rec['tensor_core_bound_ms']:.6f} ms", flush=True)
+                  f"{rec['tensor_core_bound_ms']:.6f} ms"
+                  + (f", fp32-operand products on CUDA cores "
+                     f"{rec['split_bound_ms']:.6f} ms" if rec is bwd else "")
+                  + f"; exps on the MUFU {rec['exp_ms']:.6f} ms", flush=True)
         del q, k, v, do, qg, kg, vg, out
         torch.cuda.empty_cache()
 
@@ -614,7 +637,7 @@ def k3_checks(torch, records):
             max_abs_err=err[name],
             by_shape={label: {key: rec[i][key] for key in (
                 "shape", "ms", "plain_ms", "library_ms", "library_fwd_bwd_ms",
-                "bound_ms", "fp32_bound_ms", "tensor_core_bound_ms")
+                "bound_ms", "bound_by")
                 if key in rec[i]} for label, rec in timed.items()})
 
 
@@ -692,7 +715,8 @@ def k2_checks(torch, records):
 def serve_long(torch, np):
     """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
     at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
-    at T = 512) and at 'xla' (the composed path) for the comparison."""
+    at T = 512) and at 'xla' (the composed path) for the comparison, of
+    the outputs and of the request's time without K3."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.inference.api import (
         generate_facial_data_from_bytes)
@@ -744,9 +768,8 @@ def serve_long(torch, np):
         check(e <= 0.05 * scale,
               f"(s2) '{impl}' (K3) and 'xla' agree within 5% of max|out| "
               f"(max abs diff {e}, max|out| {scale})")
-    for impl in ("auto", "pallas"):
-        request_timing(torch, np, models[impl], cfg, wav,
-                       f"'{impl}', frame_size 512")
+    for impl, model in models.items():
+        request_timing(torch, np, model, cfg, wav, f"'{impl}', frame_size 512")
     del models
     torch.cuda.empty_cache()
     return main_path
@@ -919,7 +942,8 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
     step whose kernel launches are counted from zero (the main path run)
     and must equal `expected`, then `timed` steps. Every step's loss and
     grad norm must be finite. Returns (launches, [(loss, norm)] of every
-    step, peak device memory in bytes, median step seconds or None)."""
+    step, peak device memory in bytes, median step seconds or None, device
+    ms by kernel name of the profiled step or None)."""
     from neurosync_trainer_lite_tpu_torch.ops import kernels
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_eval_step, make_train_step)
@@ -968,16 +992,15 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
     else:
         print(f"train {label}: peak device memory {peak} bytes "
               f"({peak / 2 ** 30:.3f} GiB)", flush=True)
-    if profile:
-        profile_once(torch, lambda: step(state, src, trg, steps),
-                     f"step at {label}", top=10)
+    profiled = profile_once(torch, lambda: step(state, src, trg, steps),
+                            f"step at {label}", top=10) if profile else None
     if falls:
         after = float(evaluate(state.model, src, trg))
         check(after < before, f"train {label}: the fixed batch's loss "
               f"(dropout off) fell from {before:.6f} to {after:.6f}")
     del state, step, evaluate
     torch.cuda.empty_cache()
-    return launches, history, peak, med
+    return launches, history, peak, med, profiled
 
 
 def train(torch):
@@ -1006,7 +1029,7 @@ def train(torch):
     main_path, step_a = {}, {}
     for name, cfg in configs.items():
         label = f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}"
-        launches, _, peak, med = train_config(
+        launches, _, peak, med, _ = train_config(
             torch, cfg, weights, src, trg, label, expected[name],
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
         main_path[f"train ({name})"] = launches
@@ -1093,9 +1116,11 @@ def train_long_windows(torch, weights):
     src, trg = train_batch(torch, cfg_c, gen)
     print(f"train (c): batch 32 x 512 frames, 'auto', dropout 0, no remat, "
           f"{TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed steps", flush=True)
-    main_path["train (c)"] = train_config(
-        torch, cfg_c, weights, src, trg, "(c) window 512, 'auto'", k3(24),
-        warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
+    label = "(c) window 512, 'auto'"
+    main_path["train (c)"], *_, profiled = train_config(
+        torch, cfg_c, weights, src, trg, label, k3(24),
+        warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
+    k3_in_profile(f"step at {label}", profiled)
 
     sound = fa.flash_attention_bwd_cuda
 
@@ -1127,7 +1152,7 @@ def train_long_windows(torch, weights):
     print("train (d): batch 8 x 2048 frames, 'auto', dropout 0", flush=True)
     results = {}
     for name, (cfg, expected, warmup, timed) in runs.items():
-        launches, history, peak, _ = train_config(
+        launches, history, peak, *_ = train_config(
             torch, cfg, weights, src, trg, f"(d) window 2048, {name}",
             expected, warmup=warmup, timed=timed, profile=timed > 0,
             falls=False)
@@ -1154,6 +1179,31 @@ def train_long_windows(torch, weights):
     del src, trg
     torch.cuda.empty_cache()
     return main_path
+
+
+def k3_in_profile(label: str, times: dict[str, float]) -> None:
+    """K3's share of a profiled bf16 step's device time (`times`: device ms
+    by kernel name), and that it is the tensor-core kernels' time: no
+    CUDA-core K3 kernel ran."""
+    busy = sum(times.values())
+    def k3_kernels(pattern):
+        found = {}
+        for name, t in times.items():
+            m = re.search(pattern, name)
+            if m:
+                found[m.group(0)] = found.get(m.group(0), 0.0) + t
+        return found
+
+    mma = k3_kernels(r"flash_(fwd|bwd_dq|bwd_dkdv)_mma_kernel")
+    cores = k3_kernels(r"flash_(fwd|bwd_dq|bwd_dkdv)_kernel")
+    k3 = sum(mma.values())
+    print(f"profiled {label}: K3 {k3:.3f} ms of {busy:.3f} ms device time "
+          f"({100 * k3 / busy:.1f}%): "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in sorted(mma.items())),
+          flush=True)
+    check(len(mma) == 3 and not cores,
+          f"{label}: the bf16 K3 time is the tensor-core kernels' "
+          f"({sorted(mma)}; CUDA-core K3 kernels: {sorted(cores)})")
 
 
 def train_entry_point(torch, np, step_a) -> None:
@@ -1398,8 +1448,9 @@ def gradients_in_model(torch, weights, src, trg, *, fp32, baseline, kernel,
           f"{abs(fault_norm - np_) / np_:.3e})")
 
 
-def profile_once(torch, fn, label: str, top: int) -> None:
-    """The card's busy share and top kernels of one call (profiler on)."""
+def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
+    """The card's busy share and top kernels of one call (profiler on).
+    Returns the call's device ms by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
@@ -1420,12 +1471,19 @@ def profile_once(torch, fn, label: str, top: int) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
+    return {e.key: e.self_device_time_total / 1e3 for e in events}
 
 
 def main() -> int:
     import numpy as np
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--only", choices=("serve-s2",),
+        help="build the kernels and run phase 7b alone, printing no result "
+             "line: to time the (s2) request of two trees side by side")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1445,6 +1503,10 @@ def main() -> int:
           flush=True)
     for _, log in built.values():
         print_ptxas_summary(log)
+    if args.only == "serve-s2":
+        serve_long(torch, np)
+        print(card, flush=True)
+        return 0
 
     source = "neurosync_trainer_lite_tpu_torch/csrc/"
     records = {

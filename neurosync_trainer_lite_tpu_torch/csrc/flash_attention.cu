@@ -3,27 +3,90 @@
 //
 // Replaces the two Pallas kernels of
 // neurosync_trainer_lite_tpu/ops/flash_attention.py: the forward
-// (_fwd_kernel / _fwd / flash_attention) and the backward (_bwd_kernel /
-// _bwd_call, the custom VJP). The rounding points are the Pallas bodies':
-// scores, softmax and every accumulation in fp32 from the input-type
-// operands; in the forward the normalised p is rounded to v's type before
-// p.v; in the backward p stays fp32; every output is rounded once.
+// (_fwd_kernel / _fwd, pallas_call at :71, flash_attention) and the backward
+// (_bwd_kernel / _bwd_call, pallas_call at :136, the custom VJP). The
+// rounding points are the Pallas bodies': scores, softmax and every
+// accumulation in fp32 from the input-type operands; in the forward the
+// normalised p is rounded to v's type before p.v; in the backward p and ds
+// stay fp32; every output is rounded once.
 //
-// What bounds it on the H100: operations. At the training shape of a
-// 512-frame window (B=32, N=16 heads, T=512, h=64, bf16) the forward moves
-// 67 MB but does 34 GFLOP (two T x T x h products per head); the backward
-// moves 117 MB and does 86 GFLOP (five products). All of it is fp32 on the
-// CUDA cores (67 TFLOP/s), not on the tensor cores.
+// Two families of kernels, chosen by dtype in dispatch():
+//   bf16 (the main path): flash_fwd_mma_kernel, flash_bwd_dq_mma_kernel,
+//        flash_bwd_dkdv_mma_kernel, every product on the tensor cores;
+//   fp32: flash_fwd_kernel, flash_bwd_dq_kernel, flash_bwd_dkdv_kernel, on
+//        the CUDA cores (one thread a row; described further down).
 //
-// Where the Pallas kernels load a head's whole K/V strip (up to 2048 rows)
-// into VMEM, and the backward holds the whole [Tq, Tk] p matrix, a Hopper
-// block has 227 KB of shared memory: K and V at Tk = 2048, h = 64 alone are
-// 1 MB in fp32. So every kernel streams the other operand in tiles of kTile
-// rows through shared memory (fp32, 2 x 16 KB at h = 64), and nothing
-// [Tq, Tk] is ever stored. Design, simple first: one thread owns one row and
-// keeps it and its accumulator in registers (h is a template parameter);
-// every thread of a warp reads the same tile row at once, so shared-memory
-// reads are broadcasts.
+// What bounds the bf16 kernels on the H100. At (c), a 512-frame window
+// (B = 32, N = 16 heads, T = 512, h = 64), and at (d), 2048 frames x 8, q, k,
+// v, dO and each output are 33.5 MB. The forward moves 4 x 33.5 = 134 MB
+// (0.040 ms at 3.35 TB/s) and its two products are 4.pairs.h flop: 34.4
+// GFLOP at (c), 137 at (d) (0.035 / 0.139 ms at 989 TFLOP/s). The backward
+// moves 7 x 33.5 = 235 MB (0.070 ms) and its five products are 10.pairs.h:
+// 86 / 344 GFLOP (0.087 / 0.347 ms). pairs = B.N.Tq.Tk = 134M at (c), 537M
+// at (d). So both are bound by operations at (d), the forward by bytes at
+// (c). The exps set a second floor of the same size: one exp a pair takes
+// 1 / (132 SMs x 16 a clock x 1.98 GHz) = 0.24 ps on the MUFU, one pair's
+// 4h = 256 flop 0.26 ps on the tensor cores. The forward's two passes take
+// 2 exps a pair (0.064 ms at (c), 0.257 ms at (d)) against 6.pairs.h flop of
+// products executed (0.052 / 0.208 ms); the backward 3 exps a pair (0.096 /
+// 0.385 ms) against 24.pairs.h (q.k^T and dO.v^T twice, the three split
+// products twice each: 0.208 / 0.834 ms). Neither floor sets the pace yet:
+// on an H100 SXM at 700 W (chip_smoke.py, PERF.md) the forward at (d) runs
+// its products at ~190 TFLOP/s and the backward at ~270, with 8-16 warps
+// an SM, so latency does (next steps at the end of this note).
+//
+// What held the first design (the fp32 kernels below, once also bf16) back,
+// and what these do about it:
+//  1. no tensor cores: every product was fp32 FMAs at <= 67 TFLOP/s. Here
+//     mma.sync.m16n8k16 with bf16 operands and fp32 accumulation, fed by
+//     ldmatrix (.trans where the operand lies row-major along the
+//     reduction). The m16n8 accumulator layout is the m16k16 A layout once
+//     packed to bf16, so s, p and ds feed the next product from registers
+//     (as FlashAttention-2 does; WMMA hides that layout, hence PTX).
+//  2. one thread owned one row (2-3 rows of h fp32 in registers, 255
+//     registers and spills in the backward, 64-thread blocks). Here 4 warps
+//     a block, 16 rows a warp, a block still owning 64 rows (grid_of is
+//     shared); a thread holds fragments, not rows.
+//  3. fp32 tiles in shared memory, loaded synchronously behind a fence on
+//     every tile. Here the streamed operand stays bf16 (half the bytes) and
+//     arrives through a 2-3-deep cp.async ring (16 B a thread, no
+//     register staging), waited for with cp.async.wait_group, as in
+//     ffn_bwd.cu. Rows are padded by 16 bytes so that the eight rows of
+//     each ldmatrix phase fall in distinct banks.
+//  4. extra passes on slow units: the backward's dk/dv kernel made two
+//     passes over the queries. Here it makes one. The forward keeps two
+//     passes (an online single pass would round the unnormalised p, which
+//     JAX does not), and the dq kernel keeps two (statistics and D, then
+//     dq): their second passes now run on the tensor cores.
+// The rounding points stay JAX's. q.k^T and dO.v^T have bf16 operands. In
+// the forward p = bf16(exp(s - m) / l) is JAX's rounding of the normalised
+// p, and p.v takes it as a bf16 operand. In the backward p and ds are fp32;
+// in p^T.dO, ds.k and ds^T.q the other operand is a bf16 input, so the fp32
+// one is split once into hi = bf16(x) and lo = bf16(x - hi) and the two
+// bf16 products go into one fp32 accumulator: each term keeps ~16
+// significant bits, far below the output's bf16 rounding. exp is exp2f of
+// fma(s, scale . log2 e, -m) (one FFMA and one MUFU op a pair), the max m
+// kept in that log2 domain, also in the bf16 statistics workspace; keys
+// past Tk are masked on the last tile only. Row reductions (max, sum, D) run
+// across the four lanes of a fragment row with __shfl_xor_sync in a fixed
+// order: the bits differ from the fp32 kernels' but repeat from run to run.
+// Ragged edges: keys past Tk score -inf and their K/V rows are zero-filled;
+// rows past Tq or Tk are computed but never written.
+//
+// Shared memory a block (bf16, h = 64 / 128): forward 46,080 / 87,040 B;
+// dq 55,296 / 104,448 B; dk/dv 76,032 / 70,400 B (ring depths in Mma; dk/dv
+// streams 64 / 32 queries a tile). Registers at h = 64 (nvcc -Xptxas -v,
+// printed by chip_smoke.py): forward 96, dq 128 (44 B spilled), dk/dv 233.
+//
+// fp32 kernels. Where the Pallas kernels load a head's whole K/V strip (up
+// to 2048 rows) into VMEM, and the backward holds the whole [Tq, Tk] p
+// matrix, a Hopper block has 227 KB of shared memory: K and V at Tk = 2048,
+// h = 64 alone are 1 MB in fp32. So every kernel streams the other operand
+// in tiles of kTile rows through shared memory (fp32, 2 x 16 KB at h = 64),
+// and nothing [Tq, Tk] is ever stored. Design, simple first: one thread
+// owns one row and keeps it and its accumulator in registers (h is a
+// template parameter); every thread of a warp reads the same tile row at
+// once, so shared-memory reads are broadcasts.
 //
 // Forward: one block per (b.n, 64-query tile), two passes over the keys.
 //   1. the row max and the row sum of exp (online: rescaled at a new max);
@@ -51,12 +114,15 @@
 // kernels see the same bits. Ragged tails: keys past Tk are never read,
 // rows past Tq or Tk are neither computed nor written. Instantiated for
 // h in {16, 32, 64, 128}; at 128 the register arrays spill (correct, slow).
-// Tensor cores (mma.sync / wgmma with bf16 operands, fp32 accumulation) and
-// TMA are the next step for speed.
+//
+// Next for speed (not here): wgmma from shared memory, TMA loads with
+// mbarriers, warp specialisation, persistent blocks, and a forward that
+// saves the softmax statistics for the backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -344,6 +410,485 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;  // 4 warps of 16 rows: kRows a block
+constexpr int kPad = 8;        // bf16 a shared row beyond h: 16 bytes
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Ring depths and the dq kernel's blocks an SM: at h = 64 a 2-deep ring
+// leaves room for one more block an SM in the forward and the dq kernel (the
+// dq kernel's registers capped to match), which read faster side by side
+// than 3-deep rings; the dk/dv kernel is held to two blocks by its registers
+// and keeps 3.
+template <int HD> struct Mma {
+  static constexpr int kPitch = HD + kPad;
+  static constexpr int kFwdStages = 2;
+  static constexpr int kDqStages = 2;
+  static constexpr int kDqBlocks = HD <= 64 ? 4 : 1;
+  static constexpr int kDkDvStages = HD <= 64 ? 3 : 2;
+  static constexpr int kKeys = 64;                      // streamed K/V rows
+  static constexpr int kQueries = HD <= 64 ? 64 : 32;   // streamed Q/dO rows
+  static constexpr int kKeyTile = kKeys * kPitch;       // elements of a K/V tile
+  static constexpr int kQueryTile = kQueries * kPitch;  // of a Q/dO tile
+  static constexpr size_t fwd_smem = (size_t)(kRows + kFwdStages * 2 * kKeys) * kPitch * 2;
+  static constexpr size_t dq_smem = (size_t)(2 * kRows + kDqStages * 2 * kKeys) * kPitch * 2;
+  static constexpr size_t dkdv_smem =
+      (size_t)(2 * kRows + kDkDvStages * 2 * kQueries) * kPitch * 2 +
+      kDkDvStages * 3 * kQueries * 4;
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared without passing through registers; src-size 0 writes
+// zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory, one row address a lane
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<unsigned*>(&v);
+}
+
+// (x, y) as bf16 hi = bf16(.) and lo = bf16(. - hi), x in the low half
+__device__ __forceinline__ void split2(float x, float y, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// the fragment's two rows: lane / 4 and lane / 4 + 8; its columns in each
+// n8 block j: j * 8 + 2 * (lane % 4) + {0, 1}. Element e of acc[j] lies in
+// row half e / 2, column e % 2.
+__device__ __forceinline__ int frag_col(int j, int e, int lane) {
+  return j * 8 + 2 * (lane & 3) + (e & 1);
+}
+
+// the max and the sum over the four lanes that share a fragment row: a
+// butterfly, so every lane gets the same bits
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// rows [row0, row0 + rows) of a contiguous [len, HD] bf16 matrix into a
+// shared tile of pitch HD + kPad, 16 bytes a thread a step; rows past len
+// are zero-filled
+template <int HD>
+__device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* src, int row0, int rows,
+                                                int len) {
+  constexpr int kChunks = HD / 8;
+  for (int c = threadIdx.x; c < rows * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 8;
+    const bool ok = row0 + r < len;
+    cp_async16(tile + r * (HD + kPad) + col, ok ? src + (long long)(row0 + r) * HD + col : src,
+               ok);
+  }
+}
+
+// acc[16 x N] += A[16 x HD] . B[N x HD]^T: A the warp's 16 rows of one
+// shared tile, B N rows of another, both row-major along HD (q.k^T, dO.v^T
+// and, in the dk/dv kernel, k.q^T and v.dO^T)
+template <int HD, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const bf16* a, const bf16* b,
+                                        int lane) {
+  constexpr int P = HD + kPad;
+  const int r = lane & 7, m8 = ((lane >> 3) & 1) * 8, m16 = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 16) {
+    unsigned af[4];
+    ldsm_x4(af, a + (r + m8) * P + kk + m16);
+#pragma unroll
+    for (int n = 0; n < N; n += 16) {
+      unsigned bf[4];
+      ldsm_x4(bf, b + (n + r + m16) * P + kk + m8);
+      mma_bf16(acc[n / 8], af, bf[0], bf[1]);
+      mma_bf16(acc[n / 8 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[16 x HD] += P[16 x N] . B[N x HD]: P the warp's fp32 accumulator
+// tile, whose layout is the A fragment's once packed to bf16; B a shared
+// tile row-major along HD (ldmatrix .trans). Split: P as bf16(P) +
+// bf16(P - bf16(P)), two products into acc (B is exact in bf16).
+template <int HD, int N, bool Split>
+__device__ __forceinline__ void mma_pb(float (&acc)[HD / 8][4], const float (&p)[N / 8][4],
+                                       const bf16* b, int lane) {
+  constexpr int P = HD + kPad;
+  const int r = lane & 7, m8 = ((lane >> 3) & 1) * 8, m16 = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < N; kk += 16) {
+    const float* p0 = p[kk / 8];
+    const float* p1 = p[kk / 8 + 1];
+    unsigned hi[4], lo[4];
+    split2(p0[0], p0[1], hi[0], lo[0]);
+    split2(p0[2], p0[3], hi[1], lo[1]);
+    split2(p1[0], p1[1], hi[2], lo[2]);
+    split2(p1[2], p1[3], hi[3], lo[3]);
+#pragma unroll
+    for (int n = 0; n < HD; n += 16) {
+      unsigned bf[4];
+      ldsm_x4_trans(bf, b + (kk + r + m8) * P + n + m16);
+      mma_bf16(acc[n / 8], hi, bf[0], bf[1]);
+      mma_bf16(acc[n / 8 + 1], hi, bf[2], bf[3]);
+      if (Split) {
+        mma_bf16(acc[n / 8], lo, bf[0], bf[1]);
+        mma_bf16(acc[n / 8 + 1], lo, bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// s := -inf for keys t0 + column past len (the last tile only)
+template <int N>
+__device__ __forceinline__ void mask_keys(float (&s)[N / 8][4], int t0, int len, int lane) {
+  if (t0 + N <= len) return;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (t0 + frag_col(j, e, lane) >= len) s[j][e] = -INFINITY;
+}
+
+// exp(scale . s - m) for a raw score s and a log2-domain max m = c . max s
+// (c = scale . log2 e > 0, so the max of the scaled scores is the scaled
+// max): one FFMA and one MUFU exp2
+__device__ __forceinline__ float exp_shifted(float s, float c, float m) {
+  return exp2f(fmaf(s, c, -m));
+}
+
+// the row max of the raw scores of row half h, over the fragment's lanes,
+// in the log2 domain
+template <int N>
+__device__ __forceinline__ float row_max(const float (&s)[N / 8][4], int h, float c) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+  return quad_max(mx) * c;
+}
+
+// the fragment's 16 rows x HD columns, times mul, rounded once to bf16, into
+// rows row0.. of a [len, HD] matrix; rows past len are not written
+template <int HD>
+__device__ __forceinline__ void store_frag(bf16* dst, const float (&acc)[HD / 8][4], int row0,
+                                           int len, float mul, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + (lane >> 2) + 8 * half;
+    if (row >= len) continue;
+    bf16* out = dst + (long long)row * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + j * 8) =
+          __floats2bfloat162_rn(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+  }
+}
+
+// Forward: one block per (b.n, 64-query tile), the warp's 16 query rows.
+// 2 x (Tk / 64) steps stream K (pass 1) and then K and V (pass 2) through
+// the ring; the Q tile lands with the first step.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out, int tq_len, int tk_len,
+                     float scale_log2) {
+  using M = Mma<HD>;
+  constexpr int N = M::kKeys, S = M::kFwdStages, P = M::kPitch;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][P]
+  bf16* ring = qs + kRows * P;                    // S x {K, V} [N][P]
+  const long long bn = blockIdx.x;
+  const int i0 = blockIdx.y * kRows;
+  const bf16* kb = k + bn * tk_len * HD;
+  const bf16* vb = v + bn * tk_len * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (tk_len + N - 1) / N, steps = 2 * tiles;
+
+  load_tile_async<HD>(qs, q + bn * tq_len * HD, i0, kRows, tq_len);
+  auto fetch = [&](int it) {
+    bf16* slot = ring + (it % S) * 2 * M::kKeyTile;
+    const int t0 = (it % tiles) * N;
+    load_tile_async<HD>(slot, kb, t0, N, tk_len);
+    if (it >= tiles) load_tile_async<HD>(slot + M::kKeyTile, vb, t0, N, tk_len);
+  };
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < steps) fetch(it);
+    cp_async_commit();
+  }
+
+  const bf16* qw = qs + warp * 16 * P;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2] = {0.f, 0.f};
+  float o[HD / 8][4] = {};
+  for (int it = 0; it < steps; ++it) {
+    // step it has landed, and every warp is done with step it - 1, whose
+    // slot the next load takes
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (it + S - 1 < steps) fetch(it + S - 1);
+    cp_async_commit();
+    const bf16* ks = ring + (it % S) * 2 * M::kKeyTile;
+    float s[N / 8][4] = {};
+    mma_abt<HD, N>(s, qw, ks, lane);
+    mask_keys<N>(s, (it % tiles) * N, tk_len, lane);
+    if (it < tiles) {
+      // pass 1: the row max, and this lane's share of the row sum of
+      // exp(s - max), rescaled at a new max
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mx = fmaxf(m[h], row_max<N>(s, h, scale_log2));
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+          sum += exp_shifted(s[j][2 * h], scale_log2, mx) +
+                 exp_shifted(s[j][2 * h + 1], scale_log2, mx);
+        l[h] = l[h] * exp2f(m[h] - mx) + sum;
+        m[h] = mx;
+      }
+      continue;
+    }
+    if (it == tiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) inv[h] = 1.f / quad_sum(l[h]);
+    }
+    // pass 2: p normalised, rounded to bf16 as the A operand of p.v
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp_shifted(s[j][e], scale_log2, m[e >> 1]) * inv[e >> 1];
+    mma_pb<HD, N, false>(o, s, ks + M::kKeyTile, lane);
+  }
+  store_frag<HD>(out + bn * tq_len * HD, o, i0 + warp * 16, tq_len, 1.f, lane);
+}
+
+// Backward (a): per (b.n, 64-query tile), streaming K and V twice. Pass 1:
+// s = q.k^T, dp = dO.v^T, the online max, sum and D = sum p.dp (fp32, from
+// the unrounded p and dp). Pass 2: ds = p (dp - D), dq += ds.k (split).
+// The statistics (max in the log2 domain, 1/sum, D) go to stats.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Mma<HD>::kDqBlocks)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        float* __restrict__ stats, bf16* __restrict__ dq, int bn_len, int tq_len,
+                        int tk_len, float scale, float scale_log2) {
+  using M = Mma<HD>;
+  constexpr int N = M::kKeys, S = M::kDqStages, P = M::kPitch;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kRows][P]
+  bf16* dos = qs + kRows * P;                     // [kRows][P]
+  bf16* ring = dos + kRows * P;                   // S x {K, V} [N][P]
+  const long long bn = blockIdx.x;
+  const int i0 = blockIdx.y * kRows;
+  const bf16* kb = k + bn * tk_len * HD;
+  const bf16* vb = v + bn * tk_len * HD;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tiles = (tk_len + N - 1) / N, steps = 2 * tiles;
+
+  load_tile_async<HD>(qs, q + bn * tq_len * HD, i0, kRows, tq_len);
+  load_tile_async<HD>(dos, dout + bn * tq_len * HD, i0, kRows, tq_len);
+  auto fetch = [&](int it) {
+    bf16* slot = ring + (it % S) * 2 * M::kKeyTile;
+    const int t0 = (it % tiles) * N;
+    load_tile_async<HD>(slot, kb, t0, N, tk_len);
+    load_tile_async<HD>(slot + M::kKeyTile, vb, t0, N, tk_len);
+  };
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < steps) fetch(it);
+    cp_async_commit();
+  }
+
+  const bf16* qw = qs + warp * 16 * P;
+  const bf16* dow = dos + warp * 16 * P;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+  float inv[2] = {0.f, 0.f}, d[2] = {0.f, 0.f};
+  float acc[HD / 8][4] = {};
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (it + S - 1 < steps) fetch(it + S - 1);
+    cp_async_commit();
+    const bf16* ks = ring + (it % S) * 2 * M::kKeyTile;
+    float s[N / 8][4] = {}, dp[N / 8][4] = {};
+    mma_abt<HD, N>(s, qw, ks, lane);
+    mma_abt<HD, N>(dp, dow, ks + M::kKeyTile, lane);
+    mask_keys<N>(s, (it % tiles) * N, tk_len, lane);
+    if (it < tiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mx = fmaxf(m[h], row_max<N>(s, h, scale_log2));
+        const float c = exp2f(m[h] - mx);
+        float sum = 0.f, dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const float p = exp_shifted(s[j][e], scale_log2, mx);
+            sum += p;
+            dot = fmaf(p, dp[j][e], dot);
+          }
+        l[h] = l[h] * c + sum;
+        a[h] = a[h] * c + dot;
+        m[h] = mx;
+      }
+      continue;
+    }
+    if (it == tiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        inv[h] = 1.f / quad_sum(l[h]);
+        d[h] = quad_sum(a[h]) * inv[h];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp_shifted(s[j][e], scale_log2, m[e >> 1]) * inv[e >> 1];
+        s[j][e] = p * (dp[j][e] - d[e >> 1]);
+      }
+    mma_pb<HD, N, true>(acc, s, ks, lane);
+  }
+  const int row0 = i0 + warp * 16;
+  store_frag<HD>(dq + bn * tq_len * HD, acc, row0, tq_len, scale, lane);
+  if ((lane & 3) != 0) return;
+  const long long plane = (long long)bn_len * tq_len;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + (lane >> 2) + 8 * h;
+    if (i >= tq_len) continue;
+    const long long at = bn * tq_len + i;
+    stats[at] = m[h];
+    stats[plane + at] = inv[h];
+    stats[2 * plane + at] = d[h];
+  }
+}
+
+// Backward (b): per (b.n, 64-key tile), one pass over the query tiles,
+// streaming Q, dO and the statistics of (a): s^T = k.q^T, dp^T = v.dO^T,
+// p^T, ds^T = p^T (dp^T - D), then dv += p^T.dO and dk += ds^T.q (split).
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ stats, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int bn_len, int tq_len, int tk_len, float scale,
+                          float scale_log2) {
+  using M = Mma<HD>;
+  constexpr int N = M::kQueries, S = M::kDkDvStages, P = M::kPitch;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kRows][P]
+  bf16* vs = ks + kRows * P;                      // [kRows][P]
+  bf16* ring = vs + kRows * P;                    // S x {Q, dO} [N][P]
+  float* st0 = reinterpret_cast<float*>(ring + S * 2 * M::kQueryTile);  // S x [3][N]
+  const long long bn = blockIdx.x;
+  const int t0 = blockIdx.y * kRows;
+  const bf16* qb = q + bn * tq_len * HD;
+  const bf16* dob = dout + bn * tq_len * HD;
+  const long long plane = (long long)bn_len * tq_len;
+  const float* sb = stats + bn * tq_len;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int steps = (tq_len + N - 1) / N;
+
+  load_tile_async<HD>(ks, k + bn * tk_len * HD, t0, kRows, tk_len);
+  load_tile_async<HD>(vs, v + bn * tk_len * HD, t0, kRows, tk_len);
+  // rows past Tq arrive as zeros: q = dO = 0 and 1/sum = 0 give p = ds = 0
+  auto fetch = [&](int it) {
+    bf16* slot = ring + (it % S) * 2 * M::kQueryTile;
+    float* st = st0 + (it % S) * 3 * N;
+    const int i0 = it * N;
+    load_tile_async<HD>(slot, qb, i0, N, tq_len);
+    load_tile_async<HD>(slot + M::kQueryTile, dob, i0, N, tq_len);
+    for (int e = threadIdx.x; e < 3 * N; e += kThreads) {
+      const int which = e / N, i = i0 + e % N;
+      const bool ok = i < tq_len;
+      cp_async4(st + e, ok ? sb + which * plane + i : sb, ok);
+    }
+  };
+#pragma unroll
+  for (int it = 0; it < S - 1; ++it) {
+    if (it < steps) fetch(it);
+    cp_async_commit();
+  }
+
+  const bf16* kw = ks + warp * 16 * P;
+  const bf16* vw = vs + warp * 16 * P;
+  float dk_acc[HD / 8][4] = {}, dv_acc[HD / 8][4] = {};
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<S - 2>();
+    __syncthreads();
+    if (it + S - 1 < steps) fetch(it + S - 1);
+    cp_async_commit();
+    const bf16* qs = ring + (it % S) * 2 * M::kQueryTile;
+    const bf16* dos = qs + M::kQueryTile;
+    const float* st = st0 + (it % S) * 3 * N;
+    float s[N / 8][4] = {}, dp[N / 8][4] = {};
+    mma_abt<HD, N>(s, kw, qs, lane);
+    mma_abt<HD, N>(dp, vw, dos, lane);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = frag_col(j, e, lane);
+        const float p = exp_shifted(s[j][e], scale_log2, st[i]) * st[N + i];
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - st[2 * N + i]);
+      }
+    mma_pb<HD, N, true>(dv_acc, s, dos, lane);
+    mma_pb<HD, N, true>(dk_acc, dp, qs, lane);
+  }
+  const int row0 = t0 + warp * 16;
+  store_frag<HD>(dv + bn * tk_len * HD, dv_acc, row0, tk_len, 1.f, lane);
+  store_frag<HD>(dk + bn * tk_len * HD, dk_acc, row0, tk_len, scale, lane);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <typename Kernel>
@@ -412,11 +957,67 @@ struct BwdDkDv {
   }
 };
 
-// The instantiated (dtype, head_dim) pairs; dtype 0 = float32, 1 = bfloat16.
+// bf16 takes the tensor-core kernels. Each sets its shared-memory limit
+// once, before any launch: a call made while a CUDA graph captures the
+// stream could be refused.
+template <int HD>
+struct Fwd<bf16, HD> {
+  static cudaError_t run(const Args& a) {
+    constexpr size_t smem = Mma<HD>::fwd_smem;
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (configured != cudaSuccess) return configured;
+    flash_fwd_mma_kernel<HD><<<grid_of(a, a.tq_len), kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out[0]), a.tq_len, a.tk_len,
+        a.scale * kLog2e);
+    return cudaGetLastError();
+  }
+};
+
+template <int HD>
+struct BwdDq<bf16, HD> {
+  static cudaError_t run(const Args& a) {
+    constexpr size_t smem = Mma<HD>::dq_smem;
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        flash_bwd_dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (configured != cudaSuccess) return configured;
+    flash_bwd_dq_mma_kernel<HD><<<grid_of(a, a.tq_len), kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.stats,
+        static_cast<bf16*>(a.out[0]), a.bn_len, a.tq_len, a.tk_len, a.scale, a.scale * kLog2e);
+    return cudaGetLastError();
+  }
+};
+
+template <int HD>
+struct BwdDkDv<bf16, HD> {
+  static cudaError_t run(const Args& a) {
+    constexpr size_t smem = Mma<HD>::dkdv_smem;
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        flash_bwd_dkdv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (configured != cudaSuccess) return configured;
+    flash_bwd_dkdv_mma_kernel<HD><<<grid_of(a, a.tk_len), kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.stats,
+        static_cast<bf16*>(a.out[0]), static_cast<bf16*>(a.out[1]), a.bn_len, a.tq_len,
+        a.tk_len, a.scale, a.scale * kLog2e);
+    return cudaGetLastError();
+  }
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The instantiated (dtype, head_dim) pairs; dtype 0 = float32 (the CUDA-core
+// kernels), 1 = bfloat16 (the tensor-core kernels, which load 16 bytes at a
+// time and so take 16-byte aligned tensors only).
 template <template <typename, int> class Launch>
 cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   if (a.bn_len <= 0 || a.tq_len <= 0 || a.tk_len <= 0) return cudaErrorInvalidValue;
+  if (dtype == 1 && !(aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                      aligned16(a.dout) && aligned16(a.out[0]) && aligned16(a.out[1])))
+    return cudaErrorMisalignedAddress;
   switch (head_dim) {
     case 16:
       return dtype ? Launch<__nv_bfloat16, 16>::run(a) : Launch<float, 16>::run(a);

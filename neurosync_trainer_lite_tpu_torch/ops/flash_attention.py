@@ -13,6 +13,12 @@ bodies' rounding points:
   dp = dO·vᵀ, ds = p·(dp − Σ dp·p), dq = ds·k·scale, dk = dsᵀ·q·scale, all
   fp32, each output rounded once to its input's type.
 
+On the card bf16 runs every product on the tensor cores: q·kᵀ, dO·vᵀ and the
+forward's rounded p·v as bf16 products, the backward's fp32 p and ds split
+into bf16(x) + bf16(x − bf16(x)) for pᵀ·dO, ds·k and dsᵀ·q (two bf16
+products into one fp32 sum; the other operand is a bf16 input, so exact).
+fp32 runs on the CUDA cores.
+
 Only (q, k, v) are kept for the backward, as _vjp_fwd does; the backward
 recomputes the softmax statistics. CPU tensors take the plain versions,
 CUDA tensors launch the kernels, which take head widths HEAD_DIMS.
@@ -107,10 +113,17 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _ready(t):
+    """t contiguous and starting on a 16-byte boundary: the bf16 kernels
+    load 16 bytes at a time (a contiguous view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     """Launch the forward kernel; raises on anything it does not take."""
     bn, tq, tk, head_dim = _check_inputs("flash_attention", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _ready(q), _ready(k), _ready(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -127,7 +140,7 @@ def flash_attention_bwd_cuda(q, k, v, do, scale: float):
     through fp32 workspaces [B·N, Tq]. Every sum has one owner: no atomics."""
     bn, tq, tk, head_dim = _check_inputs("flash_attention_bwd", q, k, v,
                                          more=(do,))
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    q, k, v, do = _ready(q), _ready(k), _ready(v), _ready(do)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

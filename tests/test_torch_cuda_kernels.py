@@ -261,7 +261,9 @@ FLASH_SHAPES = [  # B, N, Tq, Tk, h
     (2, 4, 96, 192, 32),       # ragged query and key tiles, cross lengths
     (1, 2, 300, 37, 16),       # fewer keys than one tile, ragged queries
     (2, 16, 512, 512, 64),     # the 512-frame window's heads
-    (1, 2, 130, 70, 128),      # head_dim 128 (registers spill)
+    (1, 2, 130, 70, 128),      # head_dim 128
+    (4, 16, 512, 512, 64),     # (s2): the 30 s request at frame_size 512
+    (1, 2, 2048, 2048, 64),    # MAX_KV_LEN: 32 tiles through the load ring
 ]
 
 
@@ -301,6 +303,32 @@ def test_flash_attention_autograd_runs_the_kernels(gen):
                                        do, 0.25)
     for got, w in zip((q.grad, k.grad, v.grad), want):
         assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_runs_the_tensor_core_symbols_in_bf16(gen, dtype):
+    """By the profiler's kernel names: bf16 runs the mma.sync kernels, fp32
+    the CUDA-core ones, forward and both backward kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do = (_randn(gen, 2, 4, 200, 64, dtype=dtype) for _ in range(4))
+
+    def run():
+        fa.flash_attention_cuda(q, k, v, 0.125)
+        fa.flash_attention_bwd_cuda(q, k, v, do, 0.125)
+        torch.cuda.synchronize()
+
+    run()                                  # builds and loads the library
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()   # twice: the tracer can miss the first launch of a window
+        run()
+    names = [e.key for e in prof.key_averages() if "flash_" in e.key]
+    mma = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+           "flash_bwd_dkdv_mma_kernel")
+    cores = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+    ran, idle = (mma, cores) if dtype == torch.bfloat16 else (cores, mma)
+    assert all(any(sym in n for n in names) for sym in ran), names
+    assert not any(sym in n for n in names for sym in idle), names
 
 
 def test_flash_attention_refusals(gen):

@@ -271,3 +271,120 @@ def test_bytes_api_at_frame_size_512_matches_jax(flash_calls):
     assert np.isfinite(ours).all()
     np.testing.assert_allclose(ours, theirs, atol=2e-5, rtol=0)
     assert len(flash_calls) == 3
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the bf16 tensor-core kernels (csrc/flash_attention.cu),
+# emulated here, against the JAX kernel: what the card computes meets
+# kernel_limit, the card checks' bound, before any card is involved
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split_mm(x, y):
+    """x·y as the card's backward takes it: the fp32 operand x split once
+    into hi = bf16(x) and lo = bf16(x − hi), y exact in bf16, two products
+    of bf16 values accumulated in fp32."""
+    hi = _bf16(x)
+    return torch.matmul(hi, y) + torch.matmul(_bf16(x - hi), y)
+
+
+def _card_softmax(qf, kf, scale):
+    """exp2(fma(s, c, −m)) with c = scale·log2(e) rounded to fp32, as the
+    launch computes it, and m = c·max s (one rounding, as the FFMA): the
+    unnormalised p and 1/sum."""
+    c = float(np.float32(scale) * LOG2E)
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    m = s.amax(-1, keepdim=True) * c
+    e = torch.exp2((s.double() * c - m.double()).float())
+    return e, 1.0 / e.sum(-1, keepdim=True)
+
+
+def _card_forward(q, k, v, scale):
+    """Two passes: p normalised, rounded to bf16 (JAX's rounding point),
+    then one bf16 product with v."""
+    e, inv = _card_softmax(q.float(), k.float(), scale)
+    return torch.matmul(_bf16(e * inv), v.float()).to(torch.bfloat16)
+
+
+def _card_backward(q, k, v, do, scale):
+    """p and ds in fp32, D from the unrounded p and dp (the dq kernel's
+    first pass), pᵀ·dO, ds·k and dsᵀ·q split into two bf16 products."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    e, inv = _card_softmax(qf, kf, scale)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    d = (e * dp).sum(-1, keepdim=True) * inv
+    p = e * inv
+    ds = p * (dp - d)
+    dq = _split_mm(ds, kf) * scale
+    dk = _split_mm(ds.transpose(-1, -2), qf) * scale
+    dv = _split_mm(p.transpose(-1, -2), dof)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def _within_kernel_limit(ours, theirs, what):
+    ref = torch.from_numpy(np.array(_f32(theirs)))
+    diff = (ours.float() - ref).abs()
+    limit = tfa.kernel_limit(ref.to(torch.bfloat16), torch.bfloat16)
+    assert bool((diff <= limit).all()), (
+        what, diff.max().item(), ref.abs().max().item())
+
+
+# (B, N, Tq, Tk, h, cancelling): kv_len 512 and MAX_KV_LEN at the model's
+# head width 64 and at 16; cancelling: dO = the output + 1% noise, so the
+# sums over ds cancel
+SPLIT_CASES = [(1, 2, 512, 512, 64, False), (1, 2, 512, 512, 16, False),
+               (1, 1, 256, 2048, 64, False), (1, 1, 256, 2048, 16, False),
+               (1, 2, 512, 512, 64, True)]
+
+
+@pytest.mark.parametrize("B,N,Tq,Tk,h,cancelling", SPLIT_CASES)
+def test_split_bf16_backward_meets_the_card_limit_against_jax(
+        B, N, Tq, Tk, h, cancelling):
+    q, k, v = _qkv((B, N, Tq, Tk, h), 4)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    out, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, None),
+                       jq, jk, jv)
+    rng = np.random.default_rng(5)
+    noise = rng.standard_normal(out.shape).astype(np.float32)
+    do = (np.asarray(out, np.float32) + 0.01 * noise if cancelling
+          else noise)
+    jgrads = vjp(jnp.asarray(do, jnp.bfloat16))
+    tq, tk, tv, tdo = (torch.from_numpy(np.asarray(a, np.float32))
+                       .to(torch.bfloat16) for a in (q, k, v, do))
+    grads = _card_backward(tq, tk, tv, tdo, h ** -0.5)
+    for name, g, jg in zip(("dq", "dk", "dv"), grads, jgrads):
+        _within_kernel_limit(g, jg, name)
+
+
+@pytest.mark.parametrize("h", [64, 16])
+def test_card_forward_rounds_the_normalised_p_as_jax(h):
+    """Tk = MAX_KV_LEN: p = bf16(exp2(fma(s, c, −m))·(1/sum)), one bf16
+    product with v, against the JAX kernel in bf16."""
+    q, k, v = _qkv((1, 2, 512, 2048, h), 6)
+    theirs = jfa.flash_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                   for a in (q, k, v)), None)
+    ours = _card_forward(*(torch.from_numpy(a).to(torch.bfloat16)
+                           for a in (q, k, v)), h ** -0.5)
+    _within_kernel_limit(ours, theirs, "out")
+
+
+def test_k3_variants_edit_constants_the_source_holds():
+    """k3_variants.py builds each variant by replacing text of Mma<HD> in
+    csrc/flash_attention.cu: each replaced text is there exactly once, and
+    every variant but "as built" differs from the source."""
+    import k3_variants
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+
+    source = (kernels.CSRC / "flash_attention.cu").read_text()
+    assert k3_variants.VARIANTS["as built"] == {}
+    for name, edits in k3_variants.VARIANTS.items():
+        text = source
+        for old, new in edits.items():
+            assert source.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text != source) == bool(edits), name

@@ -97,6 +97,27 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     assert "imported jax" not in proc.stderr
 
 
+@pytest.mark.parametrize("argv", [["chip_smoke.py", "--only", "serve-s2"],
+                                  ["k3_variants.py"]])
+def test_card_scripts_refuse_to_run_without_a_card(argv):
+    """The other ways to run the card scripts exit non-zero too, without a
+    result line and without importing JAX."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import runpy, sys\n"
+         f"sys.argv = {argv!r}\n"
+         "try:\n"
+         "    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+         "finally:\n"
+         "    assert 'jax' not in sys.modules, 'imported jax'\n"],
+        cwd=REPO, env={**_clean_env(), "CUDA_VISIBLE_DEVICES": ""},
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    assert "no CUDA device" in proc.stderr
+    assert "imported jax" not in proc.stderr
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
