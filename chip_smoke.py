@@ -10,7 +10,10 @@ exits non-zero before its result line.
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from neurosync_trainer_lite_tpu_torch/csrc, one
-   nvcc per source, in parallel, and prints the build time.
+   nvcc per source, in parallel, and prints the build time, each kernel's
+   registers and spills, and the count of HGMMA and UTMALDG instructions
+   in K2's wgmma kernel and of HMMA in the K4 backward's tensor-core
+   kernel (cuobjdump -sass); a count of zero fails the run.
 3. Checks two rounding contracts of ops/attention.py on the card: the bf16
    batched products (_matmul_round_once) equal the fp32 product rounded
    once to bf16 at the serving and training attention shapes, and
@@ -22,16 +25,18 @@ exits non-zero before its result line.
    (bitwise), and the K4 forward in bf16 (one bf16 ulp) and fp32, at the
    serving shape [17, 128, 1024] (the 30 s request's 17 chunks) and the
    training shape [128, 128, 1024]; the K4 backward at the training shape
-   in bf16 and fp32 (the forward's bound plus 1e-4 of the largest
-   gradient). K1 again at the long windows' [32, 512, 1024] and
-   [8, 2048, 1024] (bitwise); K3 forward and backward at (c)
-   [32, 16, 512, 64], (d) [8, 16, 2048, 64], (s2) [4, 16, 512, 64] and a
-   ragged cross-length [2, 4, 96 | 192, 32], bf16 (the tensor-core
-   kernels; 2^-7·|plain| + 2^-9·max|plain|) and fp32 (the CUDA-core ones;
-   1e-5·max|plain|), the backward bitwise repeatable; K2 (the fused FFN
-   backward) at step (a)'s [16384, 1024, 4096] at scale 1 and 256/179, the
-   ragged [96, 64, 192] and [1000, 1024, 4096] (dh1 2^-7·|plain| +
-   1e-5·max|plain|, db2 and db1 2e-4·max|plain|), bitwise repeatable.
+   in bf16 (the tensor-core kernel) and fp32 (the CUDA-core one), the
+   forward's bound plus 1e-4 of the largest gradient, bitwise repeatable.
+   K1 again at the long windows' [32, 512, 1024] and [8, 2048, 1024]
+   (bitwise); K3 forward and backward at (c) [32, 16, 512, 64], (d)
+   [8, 16, 2048, 64], (s2) [4, 16, 512, 64], a ragged cross-length
+   [2, 4, 96 | 192, 32] and a width off the powers of two [4, 16, 512, 48],
+   bf16 (the tensor-core kernels; 2^-7·|plain| + 2^-9·max|plain|) and fp32
+   (the CUDA-core ones; 1e-5·max|plain|), the backward bitwise repeatable;
+   K2 (the fused FFN backward) at step (a)'s [16384, 1024, 4096] at scale 1
+   and 256/179, the ragged [96, 64, 192] and [1000, 1024, 4096] (the wgmma
+   kernel) and [33, 20, 70] (the WMMA kernel), dh1 2^-7·|plain| +
+   1e-5·max|plain|, db2 and db1 2e-4·max|plain|, bitwise repeatable.
 5. Times each kernel and its plain version (median of CUDA graph replays,
    so host launch overhead is excluded) beside the least time the card
    could take for the same work: K1 and the K4 forward at the serving
@@ -40,8 +45,9 @@ exits non-zero before its result line.
    + backward beside it) as the library yardstick, which the port never
    calls, and K2 at (a)'s shape beside cuBLAS's dy·W alone. A bound
    charges the products a kernel runs on the tensor cores at their peak
-   (K3's backward: all five, split-bf16) and all other operations at the
-   fp32 CUDA cores'; K3 also prints its exps' time on the MUFU.
+   (K3's and the K4 backward's: all five, split-bf16) and all other
+   operations at the fp32 CUDA cores'; K3 also prints its exps' time on
+   the MUFU.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -68,8 +74,10 @@ exits non-zero before its result line.
    K4 backward = 24 at (b); K1 = 100, K3 forward 24 and backward 24 + 24
    at (c)). Prints samples/s (median and quartiles of 10 steps after 3
    warm-up steps), peak device memory, and the card's busy share and top
-   kernels of one profiled step; at (c) K3's share of the device time,
-   which must all be the tensor-core kernels'. Then each attention
+   kernels of one profiled step; at (b) the K4 backward's, the K4
+   forward's and K1's shares of the device time, the backward's all the
+   tensor-core kernel's; at (c) K3's, all the tensor-core kernels'. Then
+   each attention
    kernel's gradients inside the model (attention_gradients_in_model):
    one step at dropout 0
    with the kernel and with the composed path ((b) against 'auto', (c)
@@ -89,7 +97,8 @@ exits non-zero before its result line.
 10. (e) Step (a) with seq2seq._ffn rebound to ops/ffn_bwd.py:ffn_fused, so
    that every FFN backward runs K2: K2 = 16 and K1 = 100 launches a step
    (K2 = 0 with the default _ffn again), samples/s, peak memory and busy
-   share beside (a); one dropout-0 step against the default path and fp32
+   share beside (a), K2's share of the device time (all the wgmma
+   kernel's); one dropout-0 step against the default path and fp32
    per FFN weight and bias leaf, with a planted fault (db1 zeroed) that the
    check must catch.
 11. (f) The training entry point at full width on the repo's real capture:
@@ -133,8 +142,10 @@ EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64),
              "s2": (4, 16, 512, 64)}
 #: (M, H, F) K2 gets at step (a) (128 x 128 rows, hidden 1024, FFN 4096),
-#: the JAX test's ragged shape, and M off the kernel's 128-row tile
-K2_SHAPES = [(16384, 1024, 4096), (96, 64, 192), (1000, 1024, 4096)]
+#: the JAX test's ragged shape and M off the 128-row tile (the wgmma
+#: kernel), and H, F not multiples of 8 (the WMMA kernel)
+K2_SHAPES = [(16384, 1024, 4096), (96, 64, 192), (1000, 1024, 4096),
+             (33, 20, 70)]
 
 
 class SmokeFailure(RuntimeError):
@@ -250,14 +261,53 @@ def print_ptxas_summary(log: str) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel|"
+                           r"attn_bwd_mma_kernel|"
                            r"flash_fwd_kernel|flash_bwd_dq_kernel|"
                            r"flash_bwd_dkdv_kernel|flash_fwd_mma_kernel|"
                            r"flash_bwd_dq_mma_kernel|"
-                           r"flash_bwd_dkdv_mma_kernel|ffn_bwd_kernel)",
+                           r"flash_bwd_dkdv_mma_kernel|ffn_bwd_wgmma_kernel|"
+                           r"ffn_bwd_wmma_kernel)",
                            r"\1", name)
             print(f"ptxas: {short[:48]}: {m.group(1)} registers, {spills}",
                   flush=True)
             name = None
+
+
+def sass_counts(kernels) -> None:
+    """The tensor-core and TMA instructions in the compiled kernels
+    (cuobjdump -sass of each library): HGMMA and UTMALDG in K2's wgmma
+    kernel, HMMA in the K4 backward's tensor-core kernel. Fails if a count
+    is zero."""
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    wanted = {("ffn_bwd", "ffn_bwd_wgmma_kernel"): ("HGMMA", "UTMALDG"),
+              ("fused_attention", "attn_bwd_mma_kernel"): ("HMMA",)}
+    for (lib, symbol), opcodes in wanted.items():
+        sass = subprocess.run(
+            [str(tool), "-sass", str(kernels.library_path(lib))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        # one section a function, headed "Function : <mangled name>"
+        body = "".join(sec for sec in re.split(r"\n\s*Function : ", sass)[1:]
+                       if symbol in sec.split("\n", 1)[0])
+        counts = {op: len(re.findall(rf"\b{op}\b", body)) for op in opcodes}
+        check(bool(body) and all(counts.values()),
+              f"SASS of {symbol} (lib{lib}): "
+              + ", ".join(f"{op} x{n}" for op, n in counts.items()))
+
+
+def kernel_shares(label: str, times: dict[str, float],
+                  kernels: dict[str, tuple[str, str]]) -> None:
+    """Each kernel's share of a profiled step's device time (`times`:
+    device ms by kernel name). `kernels`: {label: (pattern of the symbol
+    that must have run, pattern of one that must not, or None)}."""
+    busy = sum(times.values())
+    for what, (ran, idle) in kernels.items():
+        ours = sum(t for name, t in times.items() if re.search(ran, name))
+        wrong = sorted({name[:60] for name in times
+                        if idle and re.search(idle, name)})
+        print(f"profiled {label}: {what} {ours:.3f} ms of {busy:.3f} ms "
+              f"device time ({100 * ours / busy:.1f}%)", flush=True)
+        check(ours > 0 and not wrong,
+              f"{label}: {what} ran as {ran} (and not {idle}: {wrong})")
 
 
 def rounding_contracts(torch):
@@ -419,7 +469,10 @@ def kernel_checks(torch, records):
         print(f"time {name} at {r['shape']} bf16: {r['ms']:.6f} ms on the "
               f"card (CUDA graph), {r['eager_ms']:.6f} ms eager, plain "
               f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']})"
+              + (f"; fp32-operand products on the CUDA cores "
+                 f"{r['fp32_bound_ms']:.6f} ms" if "fp32_bound_ms" in r
+                 else ""), flush=True)
 
 
 def k4_backward(torch, gen):
@@ -469,16 +522,21 @@ def k4_backward(torch, gen):
             q, k, v, do, tables, n, scale), iters=5),
         eager_ms=eager_ms(lambda: fua.fused_rope_attention_bwd_cuda(
             q, k, v, do, tables, n, scale), iters=10))
-    # five T·T·hd products per head (2 flops each), of which dp = dO·vᵀ has
-    # bf16 operands and the other four an fp32 one (rotated q and k, p, ds),
-    # the rotation of q and k and the transpose rotation of dq and dk (5
-    # flops per element each), softmax, D and ds (~10 per score); q, k, v,
-    # dO read, dq, dk, dv written once, six fp32 tables
-    flops = 8 * B * T * T * H + 20 * B * T * H + 10 * B * n * T * T
-    b_ms, b_by = bound(7 * B * T * H * 2 + 6 * T * H * 4, flops,
-                       bf16_flops=2 * B * T * T * H)
+    # five T·T·hd products per head (2 flops each), all at the tensor cores'
+    # peak, where the bf16 kernel runs them (the fp32 operands rotated q
+    # and k, p and ds split into bf16 halves); the rotation of q and k and
+    # the transpose rotation of dq and dk (5 flops per element each),
+    # softmax, D and ds (~10 per score) on the CUDA cores; q, k, v, dO
+    # read, dq, dk, dv written once, six fp32 tables. `fp32_bound_ms`: the
+    # four products with an fp32 operand on the CUDA cores instead, as the
+    # CUDA-core kernel (fp32) runs them.
+    nbytes = 7 * B * T * H * 2 + 6 * T * H * 4
+    cores = 20 * B * T * H + 10 * B * n * T * T
+    b_ms, b_by = bound(nbytes, cores, bf16_flops=10 * B * T * T * H)
     rec.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=worst,
-               shape=[B, T, H])
+               shape=[B, T, H],
+               fp32_bound_ms=bound(nbytes, 8 * B * T * T * H + cores,
+                                   bf16_flops=2 * B * T * T * H)[0])
     return rec
 
 
@@ -514,7 +572,9 @@ def k3_checks(torch, records):
 
     err = {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
     shapes = [(B, N, T, T, h) for B, N, T, h in K3_SHAPES.values()]
-    for B, N, Tq, Tk, h in shapes + [(2, 4, 96, 192, 32)]:
+    # a ragged cross-length shape, and a head width off the powers of two
+    for B, N, Tq, Tk, h in shapes + [(2, 4, 96, 192, 32), (4, 16, 512, 512,
+                                                           48)]:
         for dtype in (torch.bfloat16, torch.float32):
             q, do = (randn(B, N, Tq, h, dtype=dtype) for _ in range(2))
             k, v = (randn(B, N, Tk, h, dtype=dtype) for _ in range(2))
@@ -1029,12 +1089,17 @@ def train(torch):
     main_path, step_a = {}, {}
     for name, cfg in configs.items():
         label = f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}"
-        launches, _, peak, med, _ = train_config(
+        launches, _, peak, med, profiled = train_config(
             torch, cfg, weights, src, trg, label, expected[name],
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
         main_path[f"train ({name})"] = launches
         if name == "a":
             step_a = {"samples_per_s": cfg.batch_size / med, "peak": peak}
+        else:
+            kernel_shares(f"step at {label}", profiled, {
+                "K4 backward": (r"attn_bwd_mma_kernel", r"attn_bwd_kernel<"),
+                "K4 forward": (r"attn_fwd_kernel", None),
+                "K1": (r"rope_rows", None)})
 
     sound = fua.fused_rope_attention_bwd_cuda
 
@@ -1065,14 +1130,18 @@ def train_ffn_fused(torch, cfg, weights, src, trg):
 
     default = seq2seq._ffn
     seq2seq._ffn = ffn_bwd.ffn_fused
+    label = (f"(e) '{cfg.attention_impl}', dropout {cfg.dropout}, FFN "
+             f"backward through K2")
     try:
-        launches = train_config(
-            torch, cfg, weights, src, trg,
-            f"(e) '{cfg.attention_impl}', dropout {cfg.dropout}, FFN "
-            f"backward through K2", {"rope_rotate": 100, "ffn_bwd_dh1": 16},
-            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)[0]
+        launches, *_, profiled = train_config(
+            torch, cfg, weights, src, trg, label,
+            {"rope_rotate": 100, "ffn_bwd_dh1": 16},
+            warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     finally:
         seq2seq._ffn = default
+    kernel_shares(f"step at {label}", profiled, {
+        "K2": (r"ffn_bwd_wgmma_kernel", r"ffn_bwd_wmma_kernel"),
+        "K1": (r"rope_rows", None)})
     train_config(torch, cfg, weights, src, trg, "(e) with the default _ffn "
                  "again", {"rope_rotate": 100}, warmup=0, timed=0,
                  profile=False, falls=False)
@@ -1120,7 +1189,10 @@ def train_long_windows(torch, weights):
     main_path["train (c)"], *_, profiled = train_config(
         torch, cfg_c, weights, src, trg, label, k3(24),
         warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
-    k3_in_profile(f"step at {label}", profiled)
+    # K3's share, all of it the tensor-core kernels'
+    kernel_shares(f"step at {label}", profiled, {
+        f"K3 {part}": (rf"flash_{part}_mma_kernel", rf"flash_{part}_kernel")
+        for part in ("fwd", "bwd_dq", "bwd_dkdv")})
 
     sound = fa.flash_attention_bwd_cuda
 
@@ -1179,31 +1251,6 @@ def train_long_windows(torch, weights):
     del src, trg
     torch.cuda.empty_cache()
     return main_path
-
-
-def k3_in_profile(label: str, times: dict[str, float]) -> None:
-    """K3's share of a profiled bf16 step's device time (`times`: device ms
-    by kernel name), and that it is the tensor-core kernels' time: no
-    CUDA-core K3 kernel ran."""
-    busy = sum(times.values())
-    def k3_kernels(pattern):
-        found = {}
-        for name, t in times.items():
-            m = re.search(pattern, name)
-            if m:
-                found[m.group(0)] = found.get(m.group(0), 0.0) + t
-        return found
-
-    mma = k3_kernels(r"flash_(fwd|bwd_dq|bwd_dkdv)_mma_kernel")
-    cores = k3_kernels(r"flash_(fwd|bwd_dq|bwd_dkdv)_kernel")
-    k3 = sum(mma.values())
-    print(f"profiled {label}: K3 {k3:.3f} ms of {busy:.3f} ms device time "
-          f"({100 * k3 / busy:.1f}%): "
-          + ", ".join(f"{n} {t:.3f} ms" for n, t in sorted(mma.items())),
-          flush=True)
-    check(len(mma) == 3 and not cores,
-          f"{label}: the bf16 K3 time is the tensor-core kernels' "
-          f"({sorted(mma)}; CUDA-core K3 kernels: {sorted(cores)})")
 
 
 def train_entry_point(torch, np, step_a) -> None:
@@ -1503,6 +1550,7 @@ def main() -> int:
           flush=True)
     for _, log in built.values():
         print_ptxas_summary(log)
+    sass_counts(kernels)
     if args.only == "serve-s2":
         serve_long(torch, np)
         print(card, flush=True)

@@ -63,7 +63,7 @@ def build_variants(kernels) -> dict[str, str]:
             text = text.replace(old, new)
         src, lib = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
         src.write_text(text)
-        cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib), str(src)]
+        cmd = kernels.nvcc_command(src, lib)
         running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True),
                          lib)

@@ -50,9 +50,10 @@
 //  3. fp32 tiles in shared memory, loaded synchronously behind a fence on
 //     every tile. Here the streamed operand stays bf16 (half the bytes) and
 //     arrives through a 2-3-deep cp.async ring (16 B a thread, no
-//     register staging), waited for with cp.async.wait_group, as in
-//     ffn_bwd.cu. Rows are padded by 16 bytes so that the eight rows of
-//     each ldmatrix phase fall in distinct banks.
+//     register staging), waited for with cp.async.wait_group. Rows are
+//     padded by 16 bytes so that the eight rows of each ldmatrix phase
+//     fall in distinct banks. The warp-level helpers are in mma_sm90.cuh,
+//     shared with the K4 backward.
 //  4. extra passes on slow units: the backward's dk/dv kernel made two
 //     passes over the queries. Here it makes one. The forward keeps two
 //     passes (an online single pass would round the unnormalised p, which
@@ -113,7 +114,8 @@
 // p is recomputed from q.k in every pass with the same dot order, so both
 // kernels see the same bits. Ragged tails: keys past Tk are never read,
 // rows past Tq or Tk are neither computed nor written. Instantiated for
-// h in {16, 32, 64, 128}; at 128 the register arrays spill (correct, slow).
+// every multiple of 16 up to 128 (dispatch()); from h = 80 the register
+// arrays spill (correct, slow).
 //
 // Next for speed (not here): wgmma from shared memory, TMA loads with
 // mbarriers, warp specialisation, persistent blocks, and a forward that
@@ -123,6 +125,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -412,13 +416,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernels
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kThreads = 128;  // 4 warps of 16 rows: kRows a block
-constexpr int kPad = 8;        // bf16 a shared row beyond h: 16 bytes
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Ring depths and the dq kernel's blocks an SM: at h = 64 a 2-deep ring
+// Ring depths and the dq kernel's blocks an SM, in two width classes: h <= 64
+// (16, 32, 48, 64) and h > 64 (80 ... 128). At h = 64 a 2-deep ring
 // leaves room for one more block an SM in the forward and the dq kernel (the
 // dq kernel's registers capped to match), which read faster side by side
 // than 3-deep rings; the dk/dv kernel is held to two blocks by its registers
@@ -440,81 +442,6 @@ template <int HD> struct Mma {
       kDkDvStages * 3 * kQueries * 4;
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// global -> shared without passing through registers; src-size 0 writes
-// zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory, one row address a lane
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 operands, fp32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-// (x, y) as bf16 hi = bf16(.) and lo = bf16(. - hi), x in the low half
-__device__ __forceinline__ void split2(float x, float y, unsigned& hi, unsigned& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  hi = as_u32(h);
-  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
-}
-
-// the fragment's two rows: lane / 4 and lane / 4 + 8; its columns in each
-// n8 block j: j * 8 + 2 * (lane % 4) + {0, 1}. Element e of acc[j] lies in
-// row half e / 2, column e % 2.
-__device__ __forceinline__ int frag_col(int j, int e, int lane) {
-  return j * 8 + 2 * (lane & 3) + (e & 1);
-}
-
-// the max and the sum over the four lanes that share a fragment row: a
-// butterfly, so every lane gets the same bits
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // rows [row0, row0 + rows) of a contiguous [len, HD] bf16 matrix into a
 // shared tile of pitch HD + kPad, 16 bytes a thread a step; rows past len
 // are zero-filled
@@ -527,28 +454,6 @@ __device__ __forceinline__ void load_tile_async(bf16* tile, const bf16* src, int
     const bool ok = row0 + r < len;
     cp_async16(tile + r * (HD + kPad) + col, ok ? src + (long long)(row0 + r) * HD + col : src,
                ok);
-  }
-}
-
-// acc[16 x N] += A[16 x HD] . B[N x HD]^T: A the warp's 16 rows of one
-// shared tile, B N rows of another, both row-major along HD (q.k^T, dO.v^T
-// and, in the dk/dv kernel, k.q^T and v.dO^T)
-template <int HD, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const bf16* a, const bf16* b,
-                                        int lane) {
-  constexpr int P = HD + kPad;
-  const int r = lane & 7, m8 = ((lane >> 3) & 1) * 8, m16 = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    unsigned af[4];
-    ldsm_x4(af, a + (r + m8) * P + kk + m16);
-#pragma unroll
-    for (int n = 0; n < N; n += 16) {
-      unsigned bf[4];
-      ldsm_x4(bf, b + (n + r + m16) * P + kk + m8);
-      mma_bf16(acc[n / 8], af, bf[0], bf[1]);
-      mma_bf16(acc[n / 8 + 1], af, bf[2], bf[3]);
-    }
   }
 }
 
@@ -582,34 +487,6 @@ __device__ __forceinline__ void mma_pb(float (&acc)[HD / 8][4], const float (&p)
       }
     }
   }
-}
-
-// s := -inf for keys t0 + column past len (the last tile only)
-template <int N>
-__device__ __forceinline__ void mask_keys(float (&s)[N / 8][4], int t0, int len, int lane) {
-  if (t0 + N <= len) return;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (t0 + frag_col(j, e, lane) >= len) s[j][e] = -INFINITY;
-}
-
-// exp(scale . s - m) for a raw score s and a log2-domain max m = c . max s
-// (c = scale . log2 e > 0, so the max of the scaled scores is the scaled
-// max): one FFMA and one MUFU exp2
-__device__ __forceinline__ float exp_shifted(float s, float c, float m) {
-  return exp2f(fmaf(s, c, -m));
-}
-
-// the row max of the raw scores of row half h, over the fragment's lanes,
-// in the log2 domain
-template <int N>
-__device__ __forceinline__ float row_max(const float (&s)[N / 8][4], int h, float c) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-  return quad_max(mx) * c;
 }
 
 // the fragment's 16 rows x HD columns, times mul, rounded once to bf16, into
@@ -1008,7 +885,9 @@ struct BwdDkDv<bf16, HD> {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// The instantiated (dtype, head_dim) pairs; dtype 0 = float32 (the CUDA-core
+// The instantiated (dtype, head_dim) pairs: every multiple of 16 up to 128,
+// the widths mma.sync's k = 16 and ldmatrix's 16-column loads tile
+// (ops/flash_attention.py:HEAD_DIMS); dtype 0 = float32 (the CUDA-core
 // kernels), 1 = bfloat16 (the tensor-core kernels, which load 16 bytes at a
 // time and so take 16-byte aligned tensors only).
 template <template <typename, int> class Launch>
@@ -1019,14 +898,18 @@ cudaError_t dispatch(int dtype, int head_dim, const Args& a) {
                       aligned16(a.dout) && aligned16(a.out[0]) && aligned16(a.out[1])))
     return cudaErrorMisalignedAddress;
   switch (head_dim) {
-    case 16:
-      return dtype ? Launch<__nv_bfloat16, 16>::run(a) : Launch<float, 16>::run(a);
-    case 32:
-      return dtype ? Launch<__nv_bfloat16, 32>::run(a) : Launch<float, 32>::run(a);
-    case 64:
-      return dtype ? Launch<__nv_bfloat16, 64>::run(a) : Launch<float, 64>::run(a);
-    case 128:
-      return dtype ? Launch<__nv_bfloat16, 128>::run(a) : Launch<float, 128>::run(a);
+#define K3_WIDTH(HD) \
+  case HD:           \
+    return dtype ? Launch<__nv_bfloat16, HD>::run(a) : Launch<float, HD>::run(a);
+    K3_WIDTH(16)
+    K3_WIDTH(32)
+    K3_WIDTH(48)
+    K3_WIDTH(64)
+    K3_WIDTH(80)
+    K3_WIDTH(96)
+    K3_WIDTH(112)
+    K3_WIDTH(128)
+#undef K3_WIDTH
     default:
       return cudaErrorInvalidValue;
   }

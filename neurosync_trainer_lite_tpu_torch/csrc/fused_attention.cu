@@ -24,34 +24,64 @@
 // p.v. The [Tq, Tk] scores never leave registers. No tensor cores, TMA or
 // wgmma yet: that is the next step for speed.
 //
-// Backward. Bound on the H100: operations too. At the training shape
-// (B=128 windows, T=128, H=1024, 16 heads of 64) it moves ~235 MB but does
-// five T x T x head_dim products per head (~22 GFLOP of fp32). Design,
-// simple and deterministic: one block per (batch row, head) stages the
-// head's rotated Q and K (fp32) and its V and dO (input type) in shared
-// memory, ~98 KB in bf16 at T=128, head_dim=64, so two blocks share an SM.
-// Nothing [Tq, Tk] is stored: p is recomputed from q.k in every pass.
-//   1. Threads own query rows. One pass over the keys takes the row max
-//      and the row sum of exp online, and D_i = sum_t p_it * dp_it (fp32,
-//      recomputed, not taken from the rounded forward output); a second
-//      pass accumulates dq_i = scale * sum_t ds_it * k_t with
-//      ds = p * (dp - D). The row statistics go to shared memory.
-//   2. Threads own key rows. One pass accumulates dv_t = sum_i p_it * do_i,
-//      another dk_t = scale * sum_i ds_it * q_i (two passes keep each
-//      thread's register arrays to three rows of head_dim).
-// Every sum has one owner, so there are no float atomics and the gradients
-// are bitwise the same from run to run. dv is written in v's type. dq and
-// dk are still in the rotated domain and the transpose rotation mixes
-// neighbours across head edges, which belong to other blocks: they go to
-// fp32 workspaces, and the wrapper applies the transpose rotation there
-// (kernel K1, fp32 in and out) and rounds once (ops/fused_attention.py).
-// This recomputes q.k four times and do.v twice per (query, key) pair, 640
-// fp32 FMAs where the five products need 320, on the CUDA cores: tensor
-// cores are the next step for speed here as well.
+// Backward, two kernels chosen by dtype in dispatch(): bf16 (the training
+// step's) runs attn_bwd_mma_kernel on the tensor cores, fp32 runs
+// attn_bwd_kernel on the CUDA cores. Both: one block per (batch row, head),
+// which stages the head's rotated Q and K and its V and dO in shared memory;
+// nothing [Tq, Tk] is stored, p is recomputed from q.k in every pass. A
+// query-row pass takes the row max and the row sum of exp online and D_i =
+// sum_t p_it * dp_it (fp32, recomputed, not taken from the rounded forward
+// output), then dq_i = scale * sum_t ds_it * k_t with ds = p * (dp - D); the
+// row statistics go to shared memory. A key-row pass takes dv_t = sum_i
+// p_it * do_i and dk_t = scale * sum_i ds_it * q_i. Every sum has one owner,
+// so there are no float atomics and the gradients are bitwise the same from
+// run to run. dv is written in v's type. dq and dk are still in the rotated
+// domain and the transpose rotation mixes neighbours across head edges,
+// which belong to other blocks: they go to fp32 workspaces, and the wrapper
+// applies the transpose rotation there (kernel K1, fp32 in and out) and
+// rounds once (ops/fused_attention.py).
+//
+// What bounds it on the H100. At the training shape (B=128 windows, T=128,
+// H=1024, 16 heads of 64) q, k, v, dO and the three outputs are 7 x 33.5 MB
+// = 235 MB (0.070 ms at 3.35 TB/s); the five T x T x head_dim products of
+// each head are 10.B.T.T.H = 21.5 GFLOP (0.022 ms at the tensor cores' 989
+// TFLOP/s, 0.32 ms on the fp32 CUDA cores). So bytes, once the products run
+// on the tensor cores.
+//
+// bf16, attn_bwd_mma_kernel. The rounding points are the Pallas body's
+// (fp32 rotation, scores, softmax, p, ds and sums); the products run on
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulation (the helpers
+// of mma_sm90.cuh, as K3's). The operands that are not exact in bf16 (the
+// rotated q and k, p and ds) are split once into hi = bf16(x) and lo =
+// bf16(x - hi): a product whose two operands are split takes three mma
+// (hi.hi + hi.lo + lo.hi, ~16 significant bits a term), pT.dO two, dO.vT
+// one. The load phase rotates q and k in fp32 over the full H row (circular
+// neighbours, 8 columns a thread) and stores hi and lo tiles of Q and K
+// beside V and dO. hi + lo is 4 bytes an element, the fp32 value's size, so
+// a block's shared memory is the CUDA-core kernel's to the byte (the gate
+// ops/fused_attention.py:fits_smem holds for both): 99,840 B at T=128,
+// head_dim 64, two blocks an SM. Rows are not padded: chunk c of row r is
+// stored at chunk c ^ (r / R mod C) (C 16-byte chunks a row, R rows in 128
+// bytes), so the eight rows of an ldmatrix phase fall in distinct banks.
+// Four warps; each owns a 16-row tile of queries, then of keys, and streams
+// the other side 64 rows a step: q.kT (split) and dO.vT, the online
+// statistics, then again with ds and dq += ds.k (split); then k.qT and
+// v.dOT, pT and dsT from the statistics, dv += pT.dO and dk += dsT.q.
+// Rows past Tq or Tk are read from the last row (finite) and masked: keys
+// score -inf and queries take p = ds = 0; they are never written.
+//
+// fp32, attn_bwd_kernel, the first design. Threads own rows: its rotated Q
+// and K (fp32) and V and dO stay in shared memory, each thread keeps its
+// rows of head_dim in registers, the key-row pass makes one pass for dv and
+// another for dk (three register rows a thread); it recomputes q.k four
+// times and do.v twice a pair (640 FMAs where the products need 320).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -154,21 +184,16 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward
 
 constexpr int kBwdThreads = 128;
-// A bf16 block takes ~98 KB of shared memory at T=128, head_dim 64, so two
-// share an SM, and 2 x 128 threads may take up to 255 registers each.
+// A bf16 block takes 99,840 B of shared memory at T=128, head_dim 64, so two
+// share an SM, and 2 x 128 threads may take up to 255 registers each (an
+// fp32 block, 132,608 B, runs alone).
 constexpr int kBwdMinBlocksPerSm = 2;
 
-// Four consecutive elements of a shared-memory row as fp32. Every row
-// starts at a multiple of 16 bytes (head_dim is a multiple of 8), so these
-// are single vector loads, broadcast when a warp reads one row.
+// Four consecutive elements of a shared-memory row. Every row starts at a
+// multiple of 16 bytes (head_dim is a multiple of 8), so these are single
+// vector loads, broadcast when a warp reads one row.
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 template <int HD, typename S>
@@ -335,6 +360,285 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16: the tensor-core kernel
+
+// element offset of (row, col) in an unpadded [rows][HD] bf16 tile whose
+// 16-byte chunks are permuted within each row: chunk c of row r lies at
+// c ^ (r / R mod C), C = HD / 8 chunks a row, R = 64 / HD rows in 128 bytes
+// (1 from HD = 64). The eight rows of an ldmatrix phase, 8 consecutive rows
+// at one logical chunk, then fill the eight 16-byte bank groups.
+template <int HD>
+__device__ __forceinline__ int swz(int row, int col) {
+  constexpr int C = HD / 8, R = HD >= 64 ? 1 : 64 / HD;
+  return row * HD + ((((col >> 3) ^ (row / R)) & (C - 1)) << 3) + (col & 7);
+}
+
+// 8 columns j0.. of one [H] row of q or k, rotated in fp32 as rotate_at
+// (circular neighbours at H), split into bf16 hi and lo chunks
+__device__ __forceinline__ void rotate_split8(const bf16* row, const float* c, const float* a,
+                                              const float* b, int j0, int h_width, bf16* hi,
+                                              bf16* lo) {
+  float x[10];  // row[j0 - 1], row[j0 .. j0 + 7], row[j0 + 8]
+  const uint4 u = *reinterpret_cast<const uint4*>(row + j0);
+  const bf16* u8 = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e + 1] = __bfloat162float(u8[e]);
+  x[0] = __bfloat162float(row[j0 == 0 ? h_width - 1 : j0 - 1]);
+  x[9] = __bfloat162float(row[j0 + 8 == h_width ? 0 : j0 + 8]);
+  float cc[8], aa[8], bb[8];
+#pragma unroll
+  for (int e = 0; e < 8; e += 4) {
+    *reinterpret_cast<float4*>(cc + e) = *reinterpret_cast<const float4*>(c + j0 + e);
+    *reinterpret_cast<float4*>(aa + e) = *reinterpret_cast<const float4*>(a + j0 + e);
+    *reinterpret_cast<float4*>(bb + e) = *reinterpret_cast<const float4*>(b + j0 + e);
+  }
+  uint4 h4, l4;
+  unsigned* h = reinterpret_cast<unsigned*>(&h4);
+  unsigned* l = reinterpret_cast<unsigned*>(&l4);
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    float o[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int j = e + i;
+      o[i] = __fadd_rn(__fadd_rn(__fmul_rn(x[j + 1], cc[j]), __fmul_rn(x[j + 2], aa[j])),
+                       __fmul_rn(x[j], bb[j]));
+    }
+    split2(o[0], o[1], h[e / 2], l[e / 2]);
+  }
+  *reinterpret_cast<uint4*>(hi) = h4;
+  *reinterpret_cast<uint4*>(lo) = l4;
+}
+
+// acc[16 x N] += A[16 x HD] . B[N x HD]^T, A rows a0.. and B rows b0.. of
+// swizzled tiles (rows past alen / blen read the last row). Split: A and B
+// are hi + lo tile pairs, three products hi.hi + hi.lo + lo.hi; else one.
+template <int HD, int N, bool Split>
+__device__ __forceinline__ void mma_abt_swz(float (&acc)[N / 8][4], const bf16* ahi,
+                                            const bf16* alo, int a0, int alen, const bf16* bhi,
+                                            const bf16* blo, int b0, int blen, int lane) {
+  const int r = lane & 7, m8 = ((lane >> 3) & 1) * 8, m16 = (lane >> 4) * 8;
+  const int ar = min(a0 + r + m8, alen - 1);
+#pragma unroll
+  for (int kk = 0; kk < HD; kk += 16) {
+    unsigned ah[4], al[4];
+    ldsm_x4(ah, ahi + swz<HD>(ar, kk + m16));
+    if (Split) ldsm_x4(al, alo + swz<HD>(ar, kk + m16));
+#pragma unroll
+    for (int n = 0; n < N; n += 16) {
+      const int br = min(b0 + n + r + m16, blen - 1);
+      unsigned bh[4];
+      ldsm_x4(bh, bhi + swz<HD>(br, kk + m8));
+      mma_bf16(acc[n / 8], ah, bh[0], bh[1]);
+      mma_bf16(acc[n / 8 + 1], ah, bh[2], bh[3]);
+      if (Split) {
+        unsigned bl[4];
+        ldsm_x4(bl, blo + swz<HD>(br, kk + m8));
+        mma_bf16(acc[n / 8], ah, bl[0], bl[1]);
+        mma_bf16(acc[n / 8 + 1], ah, bl[2], bl[3]);
+        mma_bf16(acc[n / 8], al, bh[0], bh[1]);
+        mma_bf16(acc[n / 8 + 1], al, bh[2], bh[3]);
+      }
+    }
+  }
+}
+
+// acc[16 x HD] += P[16 x N] . B[N x HD]: P the warp's fp32 accumulator tile,
+// split once into bf16 hi + lo A fragments; B rows b0.. of a swizzled tile
+// (ldmatrix .trans; rows past blen read the last row). SplitB: B is a hi +
+// lo pair, three products hi.hi + hi.lo + lo.hi; else B is exact, two.
+template <int HD, int N, bool SplitB>
+__device__ __forceinline__ void mma_pb_swz(float (&acc)[HD / 8][4], const float (&p)[N / 8][4],
+                                           const bf16* bhi, const bf16* blo, int b0, int blen,
+                                           int lane) {
+  const int r = lane & 7, m8 = ((lane >> 3) & 1) * 8, m16 = (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < N; kk += 16) {
+    const float* p0 = p[kk / 8];
+    const float* p1 = p[kk / 8 + 1];
+    unsigned hi[4], lo[4];
+    split2(p0[0], p0[1], hi[0], lo[0]);
+    split2(p0[2], p0[3], hi[1], lo[1]);
+    split2(p1[0], p1[1], hi[2], lo[2]);
+    split2(p1[2], p1[3], hi[3], lo[3]);
+    const int br = min(b0 + kk + r + m8, blen - 1);
+#pragma unroll
+    for (int n = 0; n < HD; n += 16) {
+      unsigned bh[4];
+      ldsm_x4_trans(bh, bhi + swz<HD>(br, n + m16));
+      mma_bf16(acc[n / 8], hi, bh[0], bh[1]);
+      mma_bf16(acc[n / 8 + 1], hi, bh[2], bh[3]);
+      mma_bf16(acc[n / 8], lo, bh[0], bh[1]);
+      mma_bf16(acc[n / 8 + 1], lo, bh[2], bh[3]);
+      if (SplitB) {
+        unsigned bl[4];
+        ldsm_x4_trans(bl, blo + swz<HD>(br, n + m16));
+        mma_bf16(acc[n / 8], hi, bl[0], bl[1]);
+        mma_bf16(acc[n / 8 + 1], hi, bl[2], bl[3]);
+      }
+    }
+  }
+}
+
+// the fragment's 16 rows x HD columns times mul into rows row0.. (those
+// below len) of one head's columns of an [T, H] matrix, fp32 or bf16
+__device__ __forceinline__ void put2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void put2(bf16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+template <int HD, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[HD / 8][4], int row0,
+                                           int len, int h_width, float mul, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + (lane >> 2) + 8 * half;
+    if (row >= len) continue;
+    T* out = dst + (long long)row * h_width + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      put2(out + j * 8, acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocksPerSm)
+attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ cq, const float* __restrict__ aq,
+                    const float* __restrict__ bq, const float* __restrict__ ck,
+                    const float* __restrict__ ak, const float* __restrict__ bk,
+                    float* __restrict__ dq_rot, float* __restrict__ dk_rot, bf16* __restrict__ dv,
+                    int tq_len, int tk_len, int h_width, float scale, float scale_log2) {
+  constexpr int N = 64;      // keys (query pass) or queries (key pass) a step
+  constexpr int C = HD / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qhi = reinterpret_cast<bf16*>(smem_raw);  // [Tq][HD] each, swizzled
+  bf16* qlo = qhi + tq_len * HD;
+  bf16* dos = qlo + tq_len * HD;
+  bf16* khi = dos + tq_len * HD;                  // [Tk][HD] each
+  bf16* klo = khi + tk_len * HD;
+  bf16* vs = klo + tk_len * HD;
+  float* st_max = reinterpret_cast<float*>(vs + tk_len * HD);  // [Tq] each
+  float* st_inv = st_max + tq_len;
+  float* st_d = st_inv + tq_len;
+
+  const int col0 = blockIdx.y * HD;
+  const long long qbase = (long long)blockIdx.x * tq_len * h_width;
+  const long long kbase = (long long)blockIdx.x * tk_len * h_width;
+  for (int e = threadIdx.x; e < tq_len * C; e += kBwdThreads) {
+    const int t = e / C, c = (e % C) * 8;
+    const long long off = (long long)t * h_width;
+    rotate_split8(q + qbase + off, cq + off, aq + off, bq + off, col0 + c, h_width,
+                  qhi + swz<HD>(t, c), qlo + swz<HD>(t, c));
+    *reinterpret_cast<uint4*>(dos + swz<HD>(t, c)) =
+        *reinterpret_cast<const uint4*>(dout + qbase + off + col0 + c);
+  }
+  for (int e = threadIdx.x; e < tk_len * C; e += kBwdThreads) {
+    const int t = e / C, c = (e % C) * 8;
+    const long long off = (long long)t * h_width;
+    rotate_split8(k + kbase + off, ck + off, ak + off, bk + off, col0 + c, h_width,
+                  khi + swz<HD>(t, c), klo + swz<HD>(t, c));
+    *reinterpret_cast<uint4*>(vs + swz<HD>(t, c)) =
+        *reinterpret_cast<const uint4*>(v + kbase + off + col0 + c);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  constexpr int kWarps = kBwdThreads / 32;
+
+  // 1. query rows: the statistics, D and dq, 16 rows a warp at a time
+  for (int i0 = warp * 16; i0 < tq_len; i0 += kWarps * 16) {
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, a[2] = {0.f, 0.f};
+    for (int t0 = 0; t0 < tk_len; t0 += N) {
+      float s[N / 8][4] = {}, dp[N / 8][4] = {};
+      mma_abt_swz<HD, N, true>(s, qhi, qlo, i0, tq_len, khi, klo, t0, tk_len, lane);
+      mma_abt_swz<HD, N, false>(dp, dos, dos, i0, tq_len, vs, vs, t0, tk_len, lane);
+      mask_keys<N>(s, t0, tk_len, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mx = fmaxf(m[h], row_max<N>(s, h, scale_log2));
+        const float c = exp2f(m[h] - mx);
+        float sum = 0.f, dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e) {
+            const float p = exp_shifted(s[j][e], scale_log2, mx);
+            sum += p;
+            dot = fmaf(p, dp[j][e], dot);
+          }
+        l[h] = l[h] * c + sum;
+        a[h] = a[h] * c + dot;
+        m[h] = mx;
+      }
+    }
+    float inv[2], d[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      inv[h] = 1.f / quad_sum(l[h]);
+      d[h] = quad_sum(a[h]) * inv[h];
+    }
+    float acc[HD / 8][4] = {};
+    for (int t0 = 0; t0 < tk_len; t0 += N) {
+      float s[N / 8][4] = {}, dp[N / 8][4] = {};
+      mma_abt_swz<HD, N, true>(s, qhi, qlo, i0, tq_len, khi, klo, t0, tk_len, lane);
+      mma_abt_swz<HD, N, false>(dp, dos, dos, i0, tq_len, vs, vs, t0, tk_len, lane);
+      mask_keys<N>(s, t0, tk_len, lane);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp_shifted(s[j][e], scale_log2, m[e >> 1]) * inv[e >> 1];
+          s[j][e] = p * (dp[j][e] - d[e >> 1]);
+        }
+      mma_pb_swz<HD, N, true>(acc, s, khi, klo, t0, tk_len, lane);
+    }
+    store_rows<HD>(dq_rot + qbase + col0, acc, i0, tq_len, h_width, scale, lane);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = i0 + (lane >> 2) + 8 * h;
+        if (i >= tq_len) continue;
+        st_max[i] = m[h];
+        st_inv[i] = inv[h];
+        st_d[i] = d[h];
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. key rows: dv and dk, from the statistics of the query rows
+  for (int j0 = warp * 16; j0 < tk_len; j0 += kWarps * 16) {
+    float dk_acc[HD / 8][4] = {}, dv_acc[HD / 8][4] = {};
+    for (int i0 = 0; i0 < tq_len; i0 += N) {
+      float s[N / 8][4] = {}, dp[N / 8][4] = {};
+      mma_abt_swz<HD, N, true>(s, khi, klo, j0, tk_len, qhi, qlo, i0, tq_len, lane);
+      mma_abt_swz<HD, N, false>(dp, vs, vs, j0, tk_len, dos, dos, i0, tq_len, lane);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // queries past Tq: p = ds = 0
+          const int i = i0 + frag_col(j, e, lane);
+          float p = 0.f, ds = 0.f;
+          if (i < tq_len) {
+            p = exp_shifted(s[j][e], scale_log2, st_max[i]) * st_inv[i];
+            ds = p * (dp[j][e] - st_d[i]);
+          }
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+      mma_pb_swz<HD, N, false>(dv_acc, s, dos, dos, i0, tq_len, lane);
+      mma_pb_swz<HD, N, true>(dk_acc, dp, qhi, qlo, i0, tq_len, lane);
+    }
+    store_rows<HD>(dv + kbase + col0, dv_acc, j0, tk_len, h_width, 1.f, lane);
+    store_rows<HD>(dk_rot + kbase + col0, dk_acc, j0, tk_len, h_width, scale, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 template <typename Kernel>
@@ -392,6 +696,35 @@ cudaError_t Bwd<T, HD>::run(const Args& a) {
       a.tq_len, a.tk_len, a.h_width, a.scale);
   return cudaGetLastError();
 }
+
+// bf16 takes the tensor-core kernel, whose inputs, tables and outputs must
+// start on 16-byte boundaries (16-byte loads, ops/fused_attention.py makes
+// them so). Its shared-memory limit is set once, before any launch, to the
+// most a block may opt into (a call made while a CUDA graph captures the
+// stream could be refused); each launch asks for what its lengths need.
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <int HD>
+struct Bwd<bf16, HD> {
+  static cudaError_t run(const Args& a) {
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        attn_bwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (configured != cudaSuccess) return configured;
+    bool aligned = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
+    for (int i = 0; i < 6; ++i) aligned = aligned && aligned16(a.t[i]);
+    for (int i = 0; i < 3; ++i) aligned = aligned && aligned16(a.out[i]);
+    if (!aligned) return cudaErrorMisalignedAddress;
+    const size_t smem = bwd_smem_bytes<bf16, HD>(a.tq_len, a.tk_len);
+    const dim3 grid(a.batch, a.num_heads);
+    attn_bwd_mma_kernel<HD><<<grid, kBwdThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.t[0], a.t[1], a.t[2],
+        a.t[3], a.t[4], a.t[5], static_cast<float*>(a.out[0]), static_cast<float*>(a.out[1]),
+        static_cast<bf16*>(a.out[2]), a.tq_len, a.tk_len, a.h_width, a.scale,
+        a.scale * 1.4426950408889634f);
+    return cudaGetLastError();
+  }
+};
 
 // The instantiated (dtype, head_dim) pairs; dtype 0 = float32, 1 = bfloat16.
 template <template <typename, int> class Launch>

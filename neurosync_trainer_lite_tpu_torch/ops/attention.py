@@ -19,7 +19,9 @@ JAX path:
   scores and ds and fp32 softmax statistics, as the JAX custom VJP does.
 - sdpa takes the flash-attention kernel K3 (ops/flash_attention.py), fp32
   inside, where the JAX sdpa takes its Pallas flash kernel: long key
-  strips at 'auto', any length at 'pallas', never with attention dropout.
+  strips at 'auto', any length at 'pallas', never with attention dropout;
+  and only at the head widths K3 takes (multiples of 16 up to 128), where
+  the JAX kernel takes any.
 
 Dropout keeps JAX's uint8 thresholds: q = round(rate * 256), keep iff
 bits >= q, scale 256 / (256 - q). JAX draws the bits from jax keys, which
@@ -222,12 +224,16 @@ def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
     As the JAX sdpa: 'auto' takes the flash kernel K3 (ops/flash_attention.py)
     from kv_len MIN_KV_LEN_AUTO, 'pallas' at any length, both only where it
     applies (no active attention dropout, kv_len <= MAX_KV_LEN); the rest
-    takes the composed path. CPU and card take the same branch."""
+    takes the composed path. One stated difference: a head width K3 does not
+    take (not a multiple of 16, or above 128: fa.HEAD_DIMS) takes the
+    composed path too, where the JAX kernel takes any width. CPU and card
+    take the same branch."""
     scale = q.shape[-1] ** -0.5
     kv_len = k.shape[-2]
     use_flash = impl == "pallas" or (impl == "auto"
                                      and kv_len >= fa.MIN_KV_LEN_AUTO)
-    if use_flash and fa.supports(kv_len, dropout_rate if train else 0.0, seed):
+    if use_flash and fa.supports(kv_len, dropout_rate if train else 0.0, seed,
+                                 head_dim=q.shape[-1]):
         return fa.flash_attention(q, k, v, scale)
     kt = k.transpose(-1, -2)
     if v.dtype == torch.bfloat16:

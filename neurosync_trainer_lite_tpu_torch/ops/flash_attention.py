@@ -21,7 +21,11 @@ fp32 runs on the CUDA cores.
 
 Only (q, k, v) are kept for the backward, as _vjp_fwd does; the backward
 recomputes the softmax statistics. CPU tensors take the plain versions,
-CUDA tensors launch the kernels, which take head widths HEAD_DIMS.
+CUDA tensors launch the kernels, which take head widths HEAD_DIMS: every
+multiple of 16 up to 128, what mma.sync's k = 16 and ldmatrix's 16-column
+loads tile. supports(head_dim=...) declines other widths, which then take
+the composed path where the JAX kernel takes any width: the one dispatch
+difference from the JAX package.
 """
 
 from __future__ import annotations
@@ -36,14 +40,17 @@ MAX_KV_LEN = 2048
 #: 'auto' dispatches here from this key length (JAX flash_attention.py:37)
 MIN_KV_LEN_AUTO = 512
 #: head widths csrc/flash_attention.cu is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def supports(kv_len: int, dropout_rate: float, seed) -> bool:
+def supports(kv_len: int, dropout_rate: float, seed,
+             head_dim: int | None = None) -> bool:
     """Whether the kernel path applies (no attention dropout, K/V at most
-    MAX_KV_LEN), as the JAX supports()."""
-    return (dropout_rate == 0.0 or seed is None) and kv_len <= MAX_KV_LEN
+    MAX_KV_LEN), as the JAX supports(); given a head width, also whether the
+    kernels take it (HEAD_DIMS), which the JAX kernel does not ask."""
+    return ((dropout_rate == 0.0 or seed is None) and kv_len <= MAX_KV_LEN
+            and (head_dim is None or head_dim in HEAD_DIMS))
 
 
 def _probs(qf, kf, scale: float) -> torch.Tensor:
@@ -113,17 +120,10 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _ready(t):
-    """t contiguous and starting on a 16-byte boundary: the bf16 kernels
-    load 16 bytes at a time (a contiguous view may start anywhere)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def flash_attention_cuda(q, k, v, scale: float) -> torch.Tensor:
     """Launch the forward kernel; raises on anything it does not take."""
     bn, tq, tk, head_dim = _check_inputs("flash_attention", q, k, v)
-    q, k, v = _ready(q), _ready(k), _ready(v)
+    q, k, v = (kernels.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -140,7 +140,7 @@ def flash_attention_bwd_cuda(q, k, v, do, scale: float):
     through fp32 workspaces [B·N, Tq]. Every sum has one owner: no atomics."""
     bn, tq, tk, head_dim = _check_inputs("flash_attention_bwd", q, k, v,
                                          more=(do,))
-    q, k, v, do = _ready(q), _ready(k), _ready(v), _ready(do)
+    q, k, v, do = (kernels.aligned16(t) for t in (q, k, v, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()

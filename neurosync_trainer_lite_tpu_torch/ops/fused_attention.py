@@ -157,11 +157,12 @@ def fused_rope_attention_cuda(q, k, v, tables, num_heads: int,
 
 def fused_rope_attention_bwd_cuda(q, k, v, do, tables, num_heads: int,
                                   scale: float):
-    """Launch the backward kernel, then the transpose rotation of dq and dk
-    (K1 on the kernel's fp32 workspaces) and one rounding each."""
+    """Launch the backward kernel (bf16: the tensor-core one, fp32: the
+    CUDA-core one), then the transpose rotation of dq and dk (K1 on the
+    kernel's fp32 workspaces) and one rounding each."""
     batch, tq, tk, width = _check_inputs("fused_rope_attention_bwd", q, k, v,
                                          tables, num_heads, more=(do,))
-    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    q, k, v, do = (kernels.aligned16(t) for t in (q, k, v, do))
     dq_rot = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk_rot = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty_like(v)

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` compiles with nvcc for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ctypes. Libraries go to
-``build/torch_kernels/`` at the repository root, named by a hash of the
-source and the flags, so an edited source builds anew. Nothing builds when a
+library with a plain C interface, loaded with ctypes; the headers beside
+them (``csrc/*.cuh``) are shared. Libraries go to ``build/torch_kernels/``
+at the repository root, named by a hash of the source, the headers and the
+flags, so an edited source or header builds anew. Nothing builds when a
 module is imported: a wrapper builds its library at its first launch, and
 ``build()`` builds several at once, one nvcc process per source, all started
 together.
@@ -76,9 +77,16 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    """The nvcc line that builds `source` (a csrc/*.cu or an edited copy of
+    one) into the shared library `out`."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(source)]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / f"{name}.cu").read_bytes()
+    text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -89,16 +97,13 @@ def build(names=SOURCES) -> dict[str, tuple[float, str]]:
     raises with the compiler's output if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())
@@ -126,6 +131,13 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+def aligned16(t):
+    """t contiguous and starting on a 16-byte boundary, for kernels that
+    load 16 bytes at a time (a contiguous view may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_launch(status: int, kernel: str) -> None:

@@ -9,8 +9,8 @@ nothing of JAX, so they run on a machine with the card alone:
 chip_smoke.py holds the kernels at the serving shape; these cover the edges
 it does not reach: widths that are not a multiple of a warp, several
 query tiles, cross-attention lengths, every instantiated head width, the
-autograd paths, a small training step on the card and the wrappers'
-refusals.
+autograd paths, which kernel symbol each dtype and shape runs, a small
+training step on the card and the wrappers' refusals.
 """
 
 import shutil
@@ -111,6 +111,8 @@ BWD_SHAPES = [  # B, Tq, Tk, H, heads: every block loops over rows
     (3, 37, 37, 64, 4),        # head_dim 16
     (2, 16, 24, 128, 4),       # head_dim 32, cross-attention lengths
     (2, 128, 128, 1024, 16),   # head_dim 64, the training row
+    (2, 100, 100, 1024, 16),   # the training width, rows off the 16-row tiles
+    (1, 192, 192, 256, 4),     # 3 query and key steps, 3 row tiles a warp
 ]
 
 
@@ -264,6 +266,10 @@ FLASH_SHAPES = [  # B, N, Tq, Tk, h
     (1, 2, 130, 70, 128),      # head_dim 128
     (4, 16, 512, 512, 64),     # (s2): the 30 s request at frame_size 512
     (1, 2, 2048, 2048, 64),    # MAX_KV_LEN: 32 tiles through the load ring
+    (2, 16, 512, 512, 48),     # the widths off the powers of two, kv 512
+    (1, 4, 512, 512, 80),
+    (1, 4, 512, 512, 96),
+    (1, 2, 300, 200, 112),     # and ragged tiles
 ]
 
 
@@ -329,6 +335,59 @@ def test_flash_attention_runs_the_tensor_core_symbols_in_bf16(gen, dtype):
     ran, idle = (mma, cores) if dtype == torch.bfloat16 else (cores, mma)
     assert all(any(sym in n for n in names) for sym in ran), names
     assert not any(sym in n for n in names for sym in idle), names
+
+
+def _kernel_names(run, prefix):
+    """The profiler's names of the kernels `run` launches that contain
+    `prefix`, from two traced calls (the tracer can miss the first launch
+    of a window), after one untraced call that builds and loads."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        run()
+    return [e.key for e in prof.key_averages() if prefix in e.key]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_attention_backward_runs_the_tensor_core_symbol_in_bf16(
+        gen, dtype):
+    """By the profiler's kernel names: the bf16 K4 backward runs the
+    mma.sync kernel, fp32 the CUDA-core one."""
+    q, k, v, do = (_randn(gen, 2, 128, 1024, dtype=dtype) for _ in range(4))
+    tables = fua.make_tables(128, 128, 64, 16, "cuda")
+
+    def run():
+        fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, 16, 0.125)
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "attn_bwd")
+    mma = any("attn_bwd_mma_kernel" in n for n in names)
+    cores = any("attn_bwd_kernel" in n for n in names)
+    assert (mma, cores) == ((True, False) if dtype == torch.bfloat16
+                            else (False, True)), names
+
+
+@pytest.mark.parametrize("M,H,F,symbol", [(512, 1024, 4096, "wgmma"),
+                                          (96, 64, 192, "wgmma"),
+                                          (33, 20, 70, "wmma")])
+def test_ffn_bwd_runs_wgmma_where_tma_can_describe_the_shape(gen, M, H, F,
+                                                             symbol):
+    """By the profiler's kernel names: h and f multiples of 8 (aligned
+    tensors) run the wgmma + TMA kernel, the rest the WMMA one."""
+    bf16 = torch.bfloat16
+    dy = _randn(gen, M, H, dtype=bf16)
+    w = _randn(gen, H, F, dtype=bf16)
+    am = _randn(gen, M, F, dtype=bf16)
+
+    def run():
+        ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=1.0)
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "ffn_bwd")
+    assert names and all(f"ffn_bwd_{symbol}_kernel" in n for n in names), \
+        names
 
 
 def test_flash_attention_refusals(gen):

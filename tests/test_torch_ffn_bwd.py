@@ -256,3 +256,22 @@ def test_patched_step_at_dropout_draws_the_default_masks(monkeypatch):
             scale = g.abs().max().item() + 1e-30
             assert (g1[name] - g).abs().max().item() <= 2e-2 * scale, name
 
+
+def test_k2_variants_edit_text_the_source_holds():
+    """k2_variants.py builds each variant by replacing text of
+    csrc/ffn_bwd.cu: each replaced text is there exactly once, every
+    variant but "as built" differs from the source, and each names the
+    outputs it computes (the ones its check reads)."""
+    import k2_variants
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+
+    source = (kernels.CSRC / "ffn_bwd.cu").read_text()
+    assert k2_variants.VARIANTS["as built"] == ({}, ("dh1", "db2", "db1"))
+    for name, (edits, outputs) in k2_variants.VARIANTS.items():
+        assert outputs and set(outputs) <= {"dh1", "db2", "db1"}, name
+        text = source
+        for old, new in edits.items():
+            assert source.count(old) == 1, (name, old)
+            text = text.replace(old, new)
+        assert (text != source) == bool(edits), name
+

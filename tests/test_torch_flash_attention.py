@@ -38,10 +38,12 @@ from neurosync_trainer_lite_tpu_torch.utils.weights import params_from_jax
 BF16_ULP = 2.0 ** -7  # one bf16 ulp is at most 2^-7 of the value
 
 # (B, N, Tq, Tk, h): the shapes of tests/test_flash_attention.py (96 rows is
-# a ragged query tile), its cross-attention lengths, and kv_len 512 at the
-# fixture's head width
+# a ragged query tile), its cross-attention lengths, kv_len 512 at the
+# fixture's head width, and at widths off the powers of two that K3 takes
+# (48, 96: every multiple of 16 up to 128)
 SHAPES = [(2, 4, 128, 128, 64), (1, 2, 96, 96, 32), (2, 1, 256, 256, 64),
-          (2, 2, 128, 192, 64), (1, 2, 512, 512, 16)]
+          (2, 2, 128, 192, 64), (1, 2, 512, 512, 16), (1, 1, 512, 512, 48),
+          (1, 1, 512, 512, 96)]
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -203,6 +205,52 @@ def test_pallas_attention_past_the_k4_gate_takes_k3(flash_calls):
     assert flash_calls == [torch.Size([1, 2, 400, 64])]
 
 
+def test_supports_declines_only_widths_k3_does_not_tile():
+    """fa.supports(head_dim=...): every multiple of 16 up to 128 is taken,
+    the rest declined; without a width the gate is the JAX supports()."""
+    assert tfa.HEAD_DIMS == tuple(range(16, 129, 16))
+    for h in range(1, 200):
+        assert tfa.supports(512, 0.0, None, head_dim=h) == (
+            h % 16 == 0 and h <= 128), h
+    assert tfa.supports(512, 0.0, None)
+    assert not tfa.supports(2049, 0.0, None, head_dim=64)
+    assert not tfa.supports(512, 0.3, 7, head_dim=64)
+
+
+# (impl, (B, N, Tq, Tk, h), whether K3 is taken), bf16: h = 48 takes K3 at
+# 'auto' from kv_len 512 and at 'pallas' at any length; h = 40 is no
+# multiple of 16, so by the stated rule it takes the composed path
+WIDTH_DISPATCH = [("auto", (1, 2, 512, 512, 48), True),
+                  ("pallas", (2, 2, 128, 128, 48), True),
+                  ("auto", (1, 2, 512, 512, 40), False),
+                  ("pallas", (2, 2, 128, 128, 40), False)]
+
+
+@pytest.mark.parametrize("impl,shape,taken", WIDTH_DISPATCH)
+def test_sdpa_at_other_head_widths_matches_jax_k3(flash_calls, impl, shape,
+                                                  taken):
+    """Against the JAX sdpa, which takes its Pallas flash kernel at every
+    one of these widths. Where the port takes K3: one bf16 ulp of the
+    largest output, as above. Where it takes the composed path, the bf16
+    composed tolerance: its scores and weights are rounded to bf16 before
+    the product with v (the JAX kernel keeps them fp32), and an O(10)
+    score rounded to bf16 moves by up to 2^-9 of itself, its weight by as
+    much relative: 2^-4 of the largest output covers that (these inputs
+    reach 2^-6.0 at 'auto', 2^-6.9 at 'pallas'), where one ulp would not."""
+    q, k, v = _qkv(shape, 9)
+    ours = tattn.sdpa(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                      impl=impl)
+    theirs = jattn.sdpa(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                        impl=impl)
+    assert bool(flash_calls) == taken
+    if taken:
+        _assert_close(ours, theirs, torch.bfloat16)
+    else:
+        b = _f32(theirs)
+        np.testing.assert_allclose(_f32(ours), b, rtol=0,
+                                   atol=2.0 ** -4 * np.abs(b).max())
+
+
 # ---------------------------------------------------------------------------
 # the slice: a training step at window 512, and serving at frame_size=512
 
@@ -339,7 +387,7 @@ def _within_kernel_limit(ours, theirs, what):
 # sums over ds cancel
 SPLIT_CASES = [(1, 2, 512, 512, 64, False), (1, 2, 512, 512, 16, False),
                (1, 1, 256, 2048, 64, False), (1, 1, 256, 2048, 16, False),
-               (1, 2, 512, 512, 64, True)]
+               (1, 2, 512, 512, 64, True), (1, 2, 512, 512, 48, False)]
 
 
 @pytest.mark.parametrize("B,N,Tq,Tk,h,cancelling", SPLIT_CASES)

@@ -5,7 +5,9 @@ Function are held against jax.vjp of the JAX fused_rope_attention, whose
 custom VJP runs the Pallas backward kernel in interpret mode on the CPU,
 and against torch autograd of the port's own plain forward. The CUDA
 kernel itself is held against the plain version on the card
-(tests/test_torch_cuda_kernels.py, chip_smoke.py).
+(tests/test_torch_cuda_kernels.py, chip_smoke.py); the bf16 kernel's
+arithmetic (split-bf16 products on the tensor cores) is emulated here and
+held against the JAX kernel within the card's bound.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from neurosync_trainer_lite_tpu.ops import attention as jattn
 from neurosync_trainer_lite_tpu.ops import fused_attention as jfua
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import MultiHeadAttention
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as tfua
+from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import rope_rotate_plain
 
 SHAPES = [(2, 16, 16, 64, 4), (1, 24, 24, 96, 6), (2, 16, 24, 64, 4)]
 
@@ -150,3 +153,98 @@ def test_training_attention_at_pallas_matches_jax_grads():
         np.testing.assert_allclose(lin.bias.grad.numpy(),
                                    np.asarray(jgp[name]["b"]), atol=2e-5,
                                    rtol=2e-5, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the bf16 tensor-core backward (csrc/fused_attention.cu,
+# attn_bwd_mma_kernel), emulated here, against the JAX kernel: what the card
+# computes meets the card checks' bound before any card is involved
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x):
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _mm3(a, b):
+    """a·b with both fp32 operands split once into bf16 hi + lo: three
+    products of bf16 values (hi·hi + hi·lo + lo·hi) into one fp32 sum."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _mm2(a, b):
+    """a·b with the fp32 operand a split, b exact in bf16: two products."""
+    ah, al = _split(a)
+    return ah @ b + al @ b
+
+
+def _card_backward(q, k, v, do, tables, n, scale):
+    """The kernel's rounding points: q and k rotated in fp32, split; q·kᵀ
+    split (three products), dO·vᵀ one; exp2(fma(s, c, −m)) with c =
+    scale·log2(e) in fp32 and m = c·max s; D from the unrounded p and dp;
+    ds·k and dsᵀ·q split on both sides, pᵀ·dO on p's; then the transpose
+    rotation in fp32 and one bf16 rounding (the wrapper's K1)."""
+    qf = tfua._rot(q.float(), *tables[:3])
+    kf = tfua._rot(k.float(), *tables[3:])
+    vf, dof = v.float(), do.float()
+    hd = q.shape[-1] // n
+    c = float(np.float32(scale) * LOG2E)
+    dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+    for h in range(n):
+        sl = slice(h * hd, (h + 1) * hd)
+        s = _mm3(qf[..., sl], kf[..., sl].transpose(-1, -2))
+        m = s.amax(-1, keepdim=True) * c
+        e = torch.exp2((s.double() * c - m.double()).float())
+        inv = 1.0 / e.sum(-1, keepdim=True)
+        dp = dof[..., sl] @ vf[..., sl].transpose(-1, -2)
+        p = e * inv
+        ds = p * (dp - (e * dp).sum(-1, keepdim=True) * inv)
+        dq[..., sl] = _mm3(ds, kf[..., sl]) * scale
+        dk[..., sl] = _mm3(ds.transpose(-1, -2), qf[..., sl]) * scale
+        dv[..., sl] = _mm2(p.transpose(-1, -2), dof[..., sl])
+    dq = rope_rotate_plain(dq, *tables[:3], transpose=True)
+    dk = rope_rotate_plain(dk, *tables[3:], transpose=True)
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+# (B, T, H, heads, cancelling): the training head width 64 and the
+# fixture's 16 at T = 128; cancelling: dO = the output + 1% noise, so the
+# sums over ds cancel
+CARD_CASES = [(2, 128, 128, 2, False), (2, 128, 128, 8, False),
+              (2, 128, 128, 2, True)]
+
+
+@pytest.mark.parametrize("B,T,H,n,cancelling", CARD_CASES)
+def test_card_backward_meets_the_card_limit_against_jax(B, T, H, n,
+                                                        cancelling):
+    """The emulated kernel against the JAX backward in bf16 (interpret
+    mode) within the card checks' bound (chip_smoke.py k4_backward,
+    tests/test_torch_cuda_kernels.py bwd_limit): one bf16 ulp of each
+    element (2^-7 of it) plus 1e-4 of the largest gradient."""
+    q, k, v, _ = _inputs(7, B, T, T, H)
+    hd = H // n
+    scale = hd ** -0.5
+    jtables = jfua.make_tables(T, T, hd, n)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    out, vjp = jax.vjp(lambda a, b, c: jfua.fused_rope_attention(
+        a, b, c, jtables, n, scale), jq, jk, jv)
+    noise = np.random.default_rng(8).standard_normal(out.shape)
+    do = (np.asarray(out, np.float32) + 0.01 * noise if cancelling
+          else noise).astype(np.float32)
+    theirs = vjp(jnp.asarray(do, jnp.bfloat16))
+    ours = _card_backward(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do)),
+        tfua.make_tables(T, T, hd, n, "cpu"), n, scale)
+    for name, a, b in zip(("dq", "dk", "dv"), ours, theirs):
+        ref = torch.from_numpy(np.asarray(b, np.float32))
+        diff = (a.float() - ref).abs()
+        limit = 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+        assert bool((diff <= limit).all()), (name, diff.max().item(),
+                                             ref.abs().max().item())

@@ -98,7 +98,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py", "--only", "serve-s2"],
-                                  ["k3_variants.py"]])
+                                  ["k3_variants.py"], ["k2_variants.py"]])
 def test_card_scripts_refuse_to_run_without_a_card(argv):
     """The other ways to run the card scripts exit non-zero too, without a
     result line and without importing JAX."""
