@@ -12,8 +12,8 @@ exits non-zero before its result line.
 2. Builds the CUDA kernels from neurosync_trainer_lite_tpu_torch/csrc, one
    nvcc per source, in parallel, and prints the build time, each kernel's
    registers and spills, and the count of HGMMA and UTMALDG instructions
-   in K2's wgmma kernel and of HMMA in the K4 backward's tensor-core
-   kernel (cuobjdump -sass); a count of zero fails the run.
+   in K2's wgmma kernel and of HMMA in the K4 forward's and backward's
+   tensor-core kernels (cuobjdump -sass); a count of zero fails the run.
 3. Checks two rounding contracts of ops/attention.py on the card: the bf16
    batched products (_matmul_round_once) equal the fp32 product rounded
    once to bf16 at the serving and training attention shapes, and
@@ -22,11 +22,15 @@ exits non-zero before its result line.
    widened-operand formula, to one bf16 rounding.
 4. Holds each kernel against its plain PyTorch version on the card: K1
    forward and transpose, bf16 and fp32, global and head-tiled tables
-   (bitwise), and the K4 forward in bf16 (one bf16 ulp) and fp32, at the
-   serving shape [17, 128, 1024] (the 30 s request's 17 chunks) and the
-   training shape [128, 128, 1024]; the K4 backward at the training shape
-   in bf16 (the tensor-core kernel) and fp32 (the CUDA-core one), the
-   forward's bound plus 1e-4 of the largest gradient, bitwise repeatable.
+   (bitwise), and the K4 forward in bf16 (the tensor-core kernel; one bf16
+   ulp plus 1e-4 of the largest output, fua.fwd_limit) and fp32 (the
+   CUDA-core one; 1e-5 relative), bitwise repeatable, at the serving shape
+   [17, 128, 1024] (the 30 s request's 17 chunks) and the training shape
+   [128, 128, 1024]; the K4 backward at the training shape in bf16 (the
+   tensor-core kernel) and fp32 (the CUDA-core one), one bf16 ulp plus
+   1e-4 of the largest gradient, bitwise repeatable; the K4 forward and
+   backward at head widths 48 ([4, 128, 768], 16 heads) and 128 ([4, 128,
+   1024], 8 heads), where the gate refuses the fp32 backward.
    K1 again at the long windows' [32, 512, 1024] and [8, 2048, 1024]
    (bitwise); K3 forward and backward at (c) [32, 16, 512, 64], (d)
    [8, 16, 2048, 64], (s2) [4, 16, 512, 64], a ragged cross-length
@@ -39,15 +43,17 @@ exits non-zero before its result line.
    1e-5·max|plain|, db2 and db1 2e-4·max|plain|, bitwise repeatable.
 5. Times each kernel and its plain version (median of CUDA graph replays,
    so host launch overhead is excluded) beside the least time the card
-   could take for the same work: K1 and the K4 forward at the serving
-   shape, the K4 backward at the training shape, K3 at (c), (d) and (s2)
+   could take for the same work: K1 and the K4 forward at the serving and
+   the training shape (K1 also as the K4 backward's fp32 transpose there),
+   the K4 backward at the training shape, K3 at (c), (d) and (s2)
    with scaled_dot_product_attention (forward; backward alone, and forward
    + backward beside it) as the library yardstick, which the port never
    calls, and K2 at (a)'s shape beside cuBLAS's dy·W alone. A bound
    charges the products a kernel runs on the tensor cores at their peak
-   (K3's and the K4 backward's: all five, split-bf16) and all other
-   operations at the fp32 CUDA cores'; K3 also prints its exps' time on
-   the MUFU.
+   (K3's and the K4 backward's: all five, split-bf16; the K4 forward's
+   two, whose split-bf16 count as executed is printed beside it) and all
+   other operations at the fp32 CUDA cores'; K3 also prints its exps' time
+   on the MUFU.
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -75,8 +81,9 @@ exits non-zero before its result line.
    at (c)). Prints samples/s (median and quartiles of 10 steps after 3
    warm-up steps), peak device memory, and the card's busy share and top
    kernels of one profiled step; at (b) the K4 backward's, the K4
-   forward's and K1's shares of the device time, the backward's all the
-   tensor-core kernel's; at (c) K3's, all the tensor-core kernels'. Then
+   forward's and K1's shares of the device time, the forward's and the
+   backward's all the tensor-core kernels'; at (c) K3's, all the
+   tensor-core kernels'. Then
    each attention
    kernel's gradients inside the model (attention_gradients_in_model):
    one step at dropout 0
@@ -261,7 +268,7 @@ def print_ptxas_summary(log: str) -> None:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             short = re.sub(r"^.*?\d+(rope_rows|attn_fwd_kernel|attn_bwd_kernel|"
-                           r"attn_bwd_mma_kernel|"
+                           r"attn_fwd_mma_kernel|attn_bwd_mma_kernel|"
                            r"flash_fwd_kernel|flash_bwd_dq_kernel|"
                            r"flash_bwd_dkdv_kernel|flash_fwd_mma_kernel|"
                            r"flash_bwd_dq_mma_kernel|"
@@ -280,6 +287,7 @@ def sass_counts(kernels) -> None:
     is zero."""
     tool = Path(kernels._nvcc()).with_name("cuobjdump")
     wanted = {("ffn_bwd", "ffn_bwd_wgmma_kernel"): ("HGMMA", "UTMALDG"),
+              ("fused_attention", "attn_fwd_mma_kernel"): ("HMMA",),
               ("fused_attention", "attn_bwd_mma_kernel"): ("HMMA",)}
     for (lib, symbol), opcodes in wanted.items():
         sass = subprocess.run(
@@ -388,12 +396,13 @@ def kernel_checks(torch, records):
 
     B, T, H, n = serving_shape()
     hd = H // n
+    train_batch_size = Config().batch_size
     gen = torch.Generator(device="cuda").manual_seed(1)
     err = {"rope_rotate": 0.0, "fused_rope_attention": 0.0}
     table_sets = {"global": rope_tables(T, H, "cuda"),
                   "tiled": rope_tables(T, hd, "cuda", tile=n)}
     # the serving batch (the 30 s request's chunks) and the training batch
-    for batch in (B, Config().batch_size):
+    for batch in (B, train_batch_size):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(batch, T, H, device="cuda",
                             generator=gen).to(dtype)
@@ -412,67 +421,177 @@ def kernel_checks(torch, records):
             q, k, v = (torch.randn(batch, T, H, device="cuda", generator=gen)
                        .to(dtype) for _ in range(3))
             tables = fua.make_tables(T, T, hd, n, "cuda")
-            with torch.no_grad():
-                out = fua.fused_rope_attention_cuda(q, k, v, tables, n,
-                                                    hd ** -0.5)
-                torch.cuda.synchronize()
-                ref = fua.fused_rope_attention_plain(q, k, v, tables, n,
-                                                     hd ** -0.5)
-            diff = (out.float() - ref.float()).abs()
-            # bf16: one bf16 rounding apart at most (2^-7 relative); fp32:
-            # the same fp32 math summed in another order
-            rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-            limit = rel * ref.float().abs() + 1e-6
-            e = diff.max().item()
-            err["fused_rope_attention"] = max(err["fused_rope_attention"], e)
-            check(bool((diff <= limit).all()),
-                  f"K4 fused_rope_attention [{batch}, {T}, {H}] {dtype} "
-                  f"within {rel:g}·|plain| + 1e-6 of the plain version (max "
-                  f"abs err {e})")
-            del x, q, k, v, out, ref, diff, limit
+            err["fused_rope_attention"] = max(
+                err["fused_rope_attention"],
+                k4_forward_check(torch, fua, q, k, v, tables, n))
+            del x, q, k, v
+    err["fused_rope_attention"] = max(err["fused_rope_attention"],
+                                      k4_widths(torch, gen))
 
-    # timing at the serving shape in bf16, the serving dtype
-    x = torch.randn(B, T, H, device="cuda", generator=gen).to(torch.bfloat16)
+    # timing in bf16, the serving and training dtype, at the serving and the
+    # training shape; K1 also as the K4 backward's fp32 transpose at (b)
     tiled = table_sets["tiled"]
-    item = x.element_size()
+    tables = fua.make_tables(T, T, hd, n, "cuda")
+    k1_by, k4_by = {}, {}
     with torch.no_grad():
-        k1 = dict(ms=device_ms(lambda: rk.rope_rotate_cuda(x, *tiled)),
-                  plain_ms=device_ms(lambda: rk.rope_rotate_plain(x, *tiled)),
-                  eager_ms=eager_ms(lambda: rk.rope_rotate_cuda(x, *tiled)))
-        b_ms, b_by = bound(2 * x.numel() * item + 3 * T * H * 4, 5 * x.numel())
-        k1.update(bound_ms=b_ms, bound_by=b_by)
+        for label, batch, dtype, transpose in (
+                ("serving", B, torch.bfloat16, False),
+                ("training", train_batch_size, torch.bfloat16, False),
+                ("training, fp32 transpose", train_batch_size, torch.float32,
+                 True)):
+            x = torch.randn(batch, T, H, device="cuda", generator=gen).to(
+                dtype)
+            item = x.element_size()
+            rec = dict(
+                ms=device_ms(lambda: rk.rope_rotate_cuda(
+                    x, *tiled, transpose=transpose)),
+                plain_ms=device_ms(lambda: rk.rope_rotate_plain(
+                    x, *tiled, transpose=transpose)),
+                eager_ms=eager_ms(lambda: rk.rope_rotate_cuda(
+                    x, *tiled, transpose=transpose)),
+                shape=[batch, T, H], dtype=str(dtype), transpose=transpose)
+            # x read and out written once, the three fp32 tables once; 5
+            # flops an element on the CUDA cores
+            rec["bound_ms"], rec["bound_by"] = bound(
+                2 * x.numel() * item + 3 * T * H * 4, 5 * x.numel())
+            k1_by[label] = rec
+            del x
 
-        q, k, v = (torch.randn(B, T, H, device="cuda", generator=gen)
-                   .to(torch.bfloat16) for _ in range(3))
-        tables = fua.make_tables(T, T, hd, n, "cuda")
-        k4 = dict(
-            ms=device_ms(lambda: fua.fused_rope_attention_cuda(
-                q, k, v, tables, n, hd ** -0.5)),
-            plain_ms=device_ms(lambda: fua.fused_rope_attention_plain(
-                q, k, v, tables, n, hd ** -0.5)),
-            eager_ms=eager_ms(lambda: fua.fused_rope_attention_cuda(
-                q, k, v, tables, n, hd ** -0.5)))
-        # rotations (5 flops per element of q and k), q·kᵀ and p·v
-        # (2·T·T·H each), softmax (~5 per score)
-        flops = (10 * B * T * H + 4 * B * T * T * H + 5 * B * n * T * T)
-        b_ms, b_by = bound(4 * B * T * H * item + 6 * T * H * 4, flops)
-        k4.update(bound_ms=b_ms, bound_by=b_by)
+            if dtype != torch.bfloat16:
+                continue
+            q, k, v = (torch.randn(batch, T, H, device="cuda", generator=gen)
+                       .to(dtype) for _ in range(3))
+            rec = dict(
+                ms=device_ms(lambda: fua.fused_rope_attention_cuda(
+                    q, k, v, tables, n, hd ** -0.5)),
+                plain_ms=device_ms(lambda: fua.fused_rope_attention_plain(
+                    q, k, v, tables, n, hd ** -0.5), iters=5),
+                eager_ms=eager_ms(lambda: fua.fused_rope_attention_cuda(
+                    q, k, v, tables, n, hd ** -0.5)),
+                shape=[batch, T, H])
+            # q·kᵀ and p·v (2·T·T·H each) with bf16 operands at the tensor
+            # cores' peak, where the bf16 kernel runs them; the rotation of
+            # q and k (5 flops an element each) and the softmax (~5 a score)
+            # on the CUDA cores; q, k, v read and out written once, six fp32
+            # tables. `split_ms`: the products as the kernel executes them,
+            # split-bf16 (three mma for q·kᵀ, two for p·v: 10·B·T·T·H), at
+            # the tensor cores' peak
+            pairs = batch * T * T
+            rec["bound_ms"], rec["bound_by"] = bound(
+                4 * batch * T * H * item + 6 * T * H * 4,
+                10 * batch * T * H + 5 * n * pairs, bf16_flops=4 * pairs * H)
+            rec["split_ms"] = 10 * pairs * H / BF16_FLOP_PER_S * 1e3
+            rec["fp32_bound_ms"] = bound(
+                4 * batch * T * H * item + 6 * T * H * 4,
+                10 * batch * T * H + 5 * n * pairs + 4 * pairs * H)[0]
+            k4_by[label] = rec
+            del q, k, v
 
-    records["rope_rotate"].update(k1, max_abs_err=err["rope_rotate"],
-                                  shape=[B, T, H])
+    records["rope_rotate"].update(
+        {key: k1_by["serving"][key] for key in (
+            "ms", "plain_ms", "eager_ms", "bound_ms", "bound_by", "shape")},
+        max_abs_err=err["rope_rotate"], by_shape=k1_by)
     records["fused_rope_attention"].update(
-        k4, max_abs_err=err["fused_rope_attention"], shape=[B, T, H])
+        {key: k4_by["serving"][key] for key in (
+            "ms", "plain_ms", "eager_ms", "bound_ms", "bound_by", "shape")},
+        max_abs_err=err["fused_rope_attention"], by_shape=k4_by)
     records["fused_rope_attention_bwd"].update(k4_backward(torch, gen))
-    for name in ("rope_rotate", "fused_rope_attention",
-                 "fused_rope_attention_bwd"):
-        r = records[name]
-        print(f"time {name} at {r['shape']} bf16: {r['ms']:.6f} ms on the "
-              f"card (CUDA graph), {r['eager_ms']:.6f} ms eager, plain "
-              f"{r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
-              f"({r['bound_by']})"
-              + (f"; fp32-operand products on the CUDA cores "
-                 f"{r['fp32_bound_ms']:.6f} ms" if "fp32_bound_ms" in r
-                 else ""), flush=True)
+    for name, by in (("rope_rotate", k1_by), ("fused_rope_attention", k4_by)):
+        for label, r in by.items():
+            print(f"time {name} ({label}) at {r['shape']} "
+                  f"{r.get('dtype', 'torch.bfloat16')}: {r['ms']:.6f} ms on "
+                  f"the card (CUDA graph), {r['eager_ms']:.6f} ms eager, "
+                  f"plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} "
+                  f"ms ({r['bound_by']}; {r['ms'] / r['bound_ms']:.2f}x)"
+                  + (f"; split-bf16 products as executed at the tensor "
+                     f"cores' peak {r['split_ms']:.6f} ms; every operation on "
+                     f"the fp32 CUDA cores {r['fp32_bound_ms']:.6f} ms"
+                     if "split_ms" in r else ""), flush=True)
+    r = records["fused_rope_attention_bwd"]
+    print(f"time fused_rope_attention_bwd at {r['shape']} bf16: "
+          f"{r['ms']:.6f} ms on the card (CUDA graph), {r['eager_ms']:.6f} ms "
+          f"eager, plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
+          f"({r['bound_by']}); fp32-operand products on the CUDA cores "
+          f"{r['fp32_bound_ms']:.6f} ms", flush=True)
+
+
+def k4_forward_check(torch, fua, q, k, v, tables, n) -> float:
+    """The K4 forward against its plain version within fua.fwd_limit and
+    bitwise repeatable; prints how many elements lie beyond 2^-7·|plain| +
+    1e-6 (the bf16 gate before the tensor-core kernel). Returns the max abs
+    error."""
+    hd = q.shape[-1] // n
+    with torch.no_grad():
+        out = fua.fused_rope_attention_cuda(q, k, v, tables, n, hd ** -0.5)
+        torch.cuda.synchronize()
+        ref = fua.fused_rope_attention_plain(q, k, v, tables, n, hd ** -0.5)
+        again = fua.fused_rope_attention_cuda(q, k, v, tables, n, hd ** -0.5)
+    diff = (out.float() - ref.float()).abs()
+    e = diff.max().item()
+    beyond = int((diff > 2.0 ** -7 * ref.float().abs() + 1e-6).sum())
+    shape = list(q.shape)
+    check(out.dtype == q.dtype
+          and bool((diff <= fua.fwd_limit(ref, q.dtype)).all()),
+          f"K4 fused_rope_attention {shape}, {n} heads of {hd}, {q.dtype} "
+          f"within fwd_limit of the plain version (max abs err {e:.3e}, "
+          f"max|plain| {ref.float().abs().max().item():.3e}, {beyond} of "
+          f"{diff.numel()} elements beyond 2^-7·|plain| + 1e-6)")
+    check(torch.equal(out, again),
+          f"K4 fused_rope_attention {shape} {q.dtype} bitwise repeatable")
+    return e
+
+
+def k4_widths(torch, gen) -> float:
+    """The K4 forward and backward at head widths off 64, [4, 128, 768] with
+    16 heads (h = 48) and [4, 128, 1024] with 8 heads (h = 128), in bf16
+    and fp32, against their plain versions; at h = 128 and T = 128 the fp32
+    backward needs 263,680 B of shared memory, so the gate refuses it, and
+    the wrapper raises. Returns the forward's max abs error."""
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+
+    worst = 0.0
+    for H, n in ((768, 16), (1024, 8)):
+        hd = H // n
+        scale = hd ** -0.5
+        tables = fua.make_tables(128, 128, hd, n, "cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn(4, 128, H, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            worst = max(worst, k4_forward_check(torch, fua, q, k, v, tables,
+                                                n))
+            if not fua.fits_smem(128, 128, hd, q.element_size()):
+                try:
+                    fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n,
+                                                      scale)
+                    refused = False
+                except ValueError:
+                    refused = True
+                check(refused and hd == 128 and dtype == torch.float32,
+                      f"K4 backward [4, 128, {H}], {n} heads of {hd}, {dtype}: "
+                      f"refused by the shared-memory gate "
+                      f"({fua.bwd_smem_bytes(128, 128, hd, 4)} B)")
+                continue
+            out = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n,
+                                                    scale)
+            torch.cuda.synchronize()
+            ref = fua.fused_rope_attention_bwd_plain(q, k, v, do, tables, n,
+                                                     scale)
+            rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            for name, a, b in zip(("dq", "dk", "dv"), out, ref):
+                diff = (a.float() - b.float()).abs()
+                limit = rel * b.float().abs() + 1e-4 * b.float().abs().max()
+                check(a.dtype == dtype and bool((diff <= limit).all()),
+                      f"K4 backward {name} [4, 128, {H}], {n} heads of {hd}, "
+                      f"{dtype} within {rel:g}·|plain| + 1e-4·max|plain| (max "
+                      f"abs err {diff.max().item():.3e})")
+            again = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n,
+                                                      scale)
+            check(all(torch.equal(a, b) for a, b in zip(out, again)),
+                  f"K4 backward [4, 128, {H}] {dtype} bitwise repeatable")
+            del out, ref, again
+        del q, k, v, do
+    return worst
 
 
 def k4_backward(torch, gen):
@@ -1098,7 +1217,7 @@ def train(torch):
         else:
             kernel_shares(f"step at {label}", profiled, {
                 "K4 backward": (r"attn_bwd_mma_kernel", r"attn_bwd_kernel<"),
-                "K4 forward": (r"attn_fwd_kernel", None),
+                "K4 forward": (r"attn_fwd_mma_kernel", r"attn_fwd_kernel<"),
                 "K1": (r"rope_rows", None)})
 
     sound = fua.fused_rope_attention_bwd_cuda
@@ -1565,7 +1684,8 @@ def main() -> int:
         "fused_rope_attention": dict(
             route="cuda", source=source + "fused_attention.cu",
             replaces="neurosync_trainer_lite_tpu/ops/fused_attention.py:169",
-            tolerance="2^-7*|plain|+1e-6 (bf16), 1e-5*|plain|+1e-6 (fp32)"),
+            tolerance="2^-7*|plain|+1e-4*max|plain| (bf16), "
+                      "1e-5*|plain|+1e-6 (fp32)"),
         "fused_rope_attention_bwd": dict(
             route="cuda", source=source + "fused_attention.cu",
             replaces="neurosync_trainer_lite_tpu/ops/fused_attention.py:186",

@@ -10,19 +10,37 @@
 // Pallas body's _rot), so it is right for any tables, not only the per-head
 // tiled ones.
 //
-// Forward. Bound on the H100: operations. At the serving shape (B=17 chunks
-// of a 30 s clip, T=128, H=1024, 16 heads of 64) the kernel moves ~21 MB but
-// does ~1.2 GFLOP of fp32 math, and fp32 runs on the CUDA cores
-// (67 TFLOP/s), not on the tensor cores. Design, simple first: one block per (batch row, head,
-// 128-query tile). The block rotates the head's K and loads its V into
-// shared memory as fp32 (2 * Tk * head_dim * 4 bytes, 64 KB at Tk=128,
-// head_dim=64, hence the dynamic shared-memory attribute). Each thread owns
-// one query row: its rotated q and its output accumulator live in
-// registers (head_dim is a template parameter), and every thread of a warp
-// reads the same K/V row at once, so shared-memory reads are broadcasts.
-// The softmax takes two passes over the keys: the row max, then exp-sum and
-// p.v. The [Tq, Tk] scores never leave registers. No tensor cores, TMA or
-// wgmma yet: that is the next step for speed.
+// Head widths: every multiple of 16 up to 128 (dispatch() below), what
+// mma.sync's k = 16 tiles; ops/fused_attention.py:fits_smem sends other
+// widths to the composed path.
+//
+// Forward. Bound on the H100: bytes, once the products run on the tensor
+// cores. At the training shape (B=128 windows, T=128, H=1024, 16 heads of
+// 64) q, k, v and out are 4 x 33.5 MB and the tables 3.1 MB: 0.041 ms at
+// 3.35 TB/s; the two T x T x head_dim products of each head are
+// 4.B.T.T.H = 8.6 GFLOP, 0.009 ms at 989 TFLOP/s (0.13 ms on the fp32 CUDA
+// cores). Two kernels, chosen by dtype in dispatch():
+//
+// bf16 (serving's and the training step's), attn_fwd_mma_kernel. The
+// rounding points are the Pallas body's: q and k rotated in fp32 over the
+// full H row, scores, softmax and p.v in fp32, one rounding to bf16 at the
+// store. The products run on mma.sync.m16n8k16 (bf16 operands, fp32
+// accumulation): the rotated q and k are split once into bf16 hi + lo, so
+// q.kT takes three mma (hi.hi + hi.lo + lo.hi); p is split in registers
+// and v is exact, so p.v takes two. One block per (64-query tile, head,
+// batch row) with four warps of 16 query rows: the block stages the head's
+// K (rotated, hi + lo) and V in swizzled shared memory (6 bytes an
+// element, 48 KB at Tk=128, head_dim 64; with the tile's Q 64 KB, three
+// blocks an SM); the query tiles of one (head, row) are neighbours in the
+// grid, so the second finds K, V and the tables in L2. Each warp streams
+// the keys 64 at a time with an online softmax (the scores are computed
+// once). The [Tq, Tk] scores never leave registers.
+//
+// fp32, attn_fwd_kernel, the first design (CUDA cores). One block per
+// (batch row, head, 128-query tile) rotates the head's K and loads its V
+// into shared memory as fp32; each thread owns one query row, its rotated
+// q and its output accumulator in registers, and takes two passes over the
+// keys (the row max, then exp-sum and p.v).
 //
 // Backward, two kernels chosen by dtype in dispatch(): bf16 (the training
 // step's) runs attn_bwd_mma_kernel on the tensor cores, fp32 runs
@@ -60,9 +78,9 @@
 // beside V and dO. hi + lo is 4 bytes an element, the fp32 value's size, so
 // a block's shared memory is the CUDA-core kernel's to the byte (the gate
 // ops/fused_attention.py:fits_smem holds for both): 99,840 B at T=128,
-// head_dim 64, two blocks an SM. Rows are not padded: chunk c of row r is
-// stored at chunk c ^ (r / R mod C) (C 16-byte chunks a row, R rows in 128
-// bytes), so the eight rows of an ldmatrix phase fall in distinct banks.
+// head_dim 64, two blocks an SM. Rows are not padded: their 16-byte chunks
+// are permuted within the row (swz below), so the eight rows of an
+// ldmatrix phase fall in distinct banks.
 // Four warps; each owns a 16-row tile of queries, then of keys, and streams
 // the other side 64 rows a step: q.kT (split) and dO.vT, the online
 // statistics, then again with ds and dq += ds.k (split); then k.qT and
@@ -86,10 +104,11 @@
 namespace {
 
 constexpr int kQueryTile = 128;
-// Blocks per SM the register budget must allow: at head_dim 64 a block
-// takes 64 KB of shared memory, so 3 fit in 227 KB, and 3 x 128 threads
-// need <= 168 registers each (the serving batch then runs in one wave).
-constexpr int kMinBlocksPerSm = 3;
+// Blocks per SM the register budget must allow (the fp32 forward's
+// __launch_bounds__): at head_dim 64 a block takes 64 KB of shared memory,
+// so 3 fit in 227 KB, and 3 x 128 threads need <= 168 registers each; wider
+// heads (a q row and an accumulator of head_dim fp32 registers each) run
+// one block and may take 255.
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -113,7 +132,7 @@ __device__ __forceinline__ float rotate_at(const T* row, const float* c, const f
 }
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kQueryTile, kMinBlocksPerSm)
+__global__ void __launch_bounds__(kQueryTile, HD <= 64 ? 3 : 1)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const float* __restrict__ cq,
                          const float* __restrict__ aq, const float* __restrict__ bq,
@@ -363,14 +382,26 @@ attn_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 // backward, bf16: the tensor-core kernel
 
 // element offset of (row, col) in an unpadded [rows][HD] bf16 tile whose
-// 16-byte chunks are permuted within each row: chunk c of row r lies at
-// c ^ (r / R mod C), C = HD / 8 chunks a row, R = 64 / HD rows in 128 bytes
-// (1 from HD = 64). The eight rows of an ldmatrix phase, 8 consecutive rows
-// at one logical chunk, then fill the eight 16-byte bank groups.
+// 16-byte chunks are permuted within each row, so that the eight rows of an
+// ldmatrix phase (8 consecutive rows from a multiple of 8, at one logical
+// chunk) fill the eight 16-byte bank groups. C = HD / 8 chunks a row. A
+// power of two: chunk c of row r lies at c ^ (r / R mod C), R = 64 / HD rows
+// in 128 bytes (1 from HD = 64). Otherwise (HD = 48, 80, 96, 112) a
+// rotation, chunk c at (c + o(r)) mod C, o = (r >> 2) & 1 for C = 6, 10,
+// 14 and (r >> 1) & 3 for C = 12: the offsets that make those phases
+// conflict-free (found by search; XOR would leave the row).
 template <int HD>
 __device__ __forceinline__ int swz(int row, int col) {
-  constexpr int C = HD / 8, R = HD >= 64 ? 1 : 64 / HD;
-  return row * HD + ((((col >> 3) ^ (row / R)) & (C - 1)) << 3) + (col & 7);
+  constexpr int C = HD / 8;
+  int chunk = col >> 3;
+  if constexpr ((C & (C - 1)) == 0) {
+    constexpr int R = HD >= 64 ? 1 : 64 / HD;
+    chunk = (chunk ^ (row / R)) & (C - 1);
+  } else {
+    chunk += C % 4 == 0 ? (row >> 1) & 3 : (row >> 2) & 1;
+    if (chunk >= C) chunk -= C;
+  }
+  return row * HD + (chunk << 3) + (col & 7);
 }
 
 // 8 columns j0.. of one [H] row of q or k, rotated in fp32 as rotate_at
@@ -480,8 +511,9 @@ __device__ __forceinline__ void mma_pb_swz(float (&acc)[HD / 8][4], const float 
   }
 }
 
-// the fragment's 16 rows x HD columns times mul into rows row0.. (those
-// below len) of one head's columns of an [T, H] matrix, fp32 or bf16
+// the fragment's 16 rows x HD columns, row half h times mul[h], into rows
+// row0.. (those below len) of one head's columns of an [T, H] matrix, fp32
+// or bf16
 __device__ __forceinline__ void put2(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
@@ -490,7 +522,8 @@ __device__ __forceinline__ void put2(bf16* p, float x, float y) {
 }
 template <int HD, typename T>
 __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[HD / 8][4], int row0,
-                                           int len, int h_width, float mul, int lane) {
+                                           int len, int h_width, const float (&mul)[2],
+                                           int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + (lane >> 2) + 8 * half;
@@ -498,7 +531,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[HD / 8][4]
     T* out = dst + (long long)row * h_width + 2 * (lane & 3);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      put2(out + j * 8, acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+      put2(out + j * 8, acc[j][2 * half] * mul[half], acc[j][2 * half + 1] * mul[half]);
   }
 }
 
@@ -595,7 +628,7 @@ attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
       mma_pb_swz<HD, N, true>(acc, s, khi, klo, t0, tk_len, lane);
     }
-    store_rows<HD>(dq_rot + qbase + col0, acc, i0, tq_len, h_width, scale, lane);
+    store_rows<HD>(dq_rot + qbase + col0, acc, i0, tq_len, h_width, {scale, scale}, lane);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -633,9 +666,110 @@ attn_bwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       mma_pb_swz<HD, N, false>(dv_acc, s, dos, dos, i0, tq_len, lane);
       mma_pb_swz<HD, N, true>(dk_acc, dp, qhi, qlo, i0, tq_len, lane);
     }
-    store_rows<HD>(dv + kbase + col0, dv_acc, j0, tk_len, h_width, 1.f, lane);
-    store_rows<HD>(dk_rot + kbase + col0, dk_acc, j0, tk_len, h_width, scale, lane);
+    store_rows<HD>(dv + kbase + col0, dv_acc, j0, tk_len, h_width, {1.f, 1.f}, lane);
+    store_rows<HD>(dk_rot + kbase + col0, dk_acc, j0, tk_len, h_width, {scale, scale},
+                   lane);
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward, bf16: the tensor-core kernel
+
+constexpr int kFwdRows = 64;                     // query rows a block
+constexpr int kFwdThreads = (kFwdRows / 16) * 32;  // a warp per 16 rows
+
+// Shared memory of one block: the head's rotated K as hi and lo tiles and
+// its V, [Tk][HD] each, then the block's rotated Q rows as hi and lo
+// [kFwdRows][HD], all bf16 and swizzled. ops/fused_attention.py:
+// fwd_smem_bytes is the same sum.
+template <int HD>
+size_t fwd_mma_smem_bytes(int tk_len) {
+  return (size_t)(3 * tk_len + 2 * kFwdRows) * HD * sizeof(bf16);
+}
+
+// One block per (64-query tile, head, batch row), four warps of 16 query
+// rows. The block stages V by cp.async, and K and its Q rows rotated in
+// fp32 and split into bf16 hi + lo, under one barrier. Each warp then
+// streams the keys N at a time: s = q.kT (split: three mma), the online
+// softmax in fp32 (the row max and sum of exp2(s.c - m) with c = scale .
+// log2 e, the accumulator rescaled when the max moves), acc += p.v (p split,
+// v exact: two mma). Keys past Tk score -inf; query rows past Tq are read
+// from the tile's last row and never written. out = acc / sum, rounded once.
+template <int HD>
+__global__ void __launch_bounds__(kFwdThreads, HD <= 64 ? 3 : 2)
+attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ cq,
+                    const float* __restrict__ aq, const float* __restrict__ bq,
+                    const float* __restrict__ ck, const float* __restrict__ ak,
+                    const float* __restrict__ bk, bf16* __restrict__ out, int tq_len,
+                    int tk_len, int h_width, float scale_log2) {
+  constexpr int N = 64;      // keys a step
+  constexpr int C = HD / 8;  // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* khi = reinterpret_cast<bf16*>(smem_raw);  // [Tk][HD] each
+  bf16* klo = khi + tk_len * HD;
+  bf16* vs = klo + tk_len * HD;
+  bf16* qhi = vs + tk_len * HD;                   // [kFwdRows][HD] each
+  bf16* qlo = qhi + kFwdRows * HD;
+
+  const int q0 = blockIdx.x * kFwdRows;
+  const int rows = min(kFwdRows, tq_len - q0);
+  const int col0 = blockIdx.y * HD;
+  const long long qbase = (long long)blockIdx.z * tq_len * h_width;
+  const long long kbase = (long long)blockIdx.z * tk_len * h_width;
+  for (int e = threadIdx.x; e < tk_len * C; e += kFwdThreads) {
+    const int t = e / C, c = (e % C) * 8;
+    cp_async16(vs + swz<HD>(t, c), v + kbase + (long long)t * h_width + col0 + c, true);
+  }
+  cp_async_commit();
+  for (int e = threadIdx.x; e < tk_len * C; e += kFwdThreads) {
+    const int t = e / C, c = (e % C) * 8;
+    const long long off = (long long)t * h_width;
+    rotate_split8(k + kbase + off, ck + off, ak + off, bk + off, col0 + c, h_width,
+                  khi + swz<HD>(t, c), klo + swz<HD>(t, c));
+  }
+  for (int e = threadIdx.x; e < rows * C; e += kFwdThreads) {
+    const int t = e / C, c = (e % C) * 8;
+    const long long off = (long long)(q0 + t) * h_width;
+    rotate_split8(q + qbase + off, cq + off, aq + off, bq + off, col0 + c, h_width,
+                  qhi + swz<HD>(t, c), qlo + swz<HD>(t, c));
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int i0 = warp * 16;
+  if (i0 >= rows) return;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[HD / 8][4] = {};
+  for (int t0 = 0; t0 < tk_len; t0 += N) {
+    float s[N / 8][4] = {};
+    mma_abt_swz<HD, N, true>(s, qhi, qlo, i0, rows, khi, klo, t0, tk_len, lane);
+    mask_keys<N>(s, t0, tk_len, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mx = fmaxf(m[h], row_max<N>(s, h, scale_log2));
+      const float c = exp2f(m[h] - mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp_shifted(s[j][e], scale_log2, mx);
+          sum += s[j][e];
+        }
+      l[h] = l[h] * c + sum;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        acc[j][2 * h] *= c;
+        acc[j][2 * h + 1] *= c;
+      }
+      m[h] = mx;
+    }
+    mma_pb_swz<HD, N, false>(acc, s, vs, vs, t0, tk_len, lane);
+  }
+  const float inv[2] = {1.f / quad_sum(l[0]), 1.f / quad_sum(l[1])};
+  store_rows<HD>(out + qbase + col0, acc, q0 + i0, tq_len, h_width, inv, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -697,12 +831,38 @@ cudaError_t Bwd<T, HD>::run(const Args& a) {
   return cudaGetLastError();
 }
 
-// bf16 takes the tensor-core kernel, whose inputs, tables and outputs must
+// bf16 takes the tensor-core kernels, whose inputs, tables and outputs must
 // start on 16-byte boundaries (16-byte loads, ops/fused_attention.py makes
 // them so). Its shared-memory limit is set once, before any launch, to the
 // most a block may opt into (a call made while a CUDA graph captures the
 // stream could be refused); each launch asks for what its lengths need.
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+bool all_aligned16(const Args& a, int pointers) {
+  bool aligned = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                 (a.dout == nullptr || aligned16(a.dout));
+  for (int i = 0; i < 6; ++i) aligned = aligned && aligned16(a.t[i]);
+  for (int i = 0; i < pointers; ++i) aligned = aligned && aligned16(a.out[i]);
+  return aligned;
+}
+
+template <int HD>
+struct Fwd<bf16, HD> {
+  static cudaError_t run(const Args& a) {
+    static const cudaError_t configured = cudaFuncSetAttribute(
+        attn_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+    if (configured != cudaSuccess) return configured;
+    if (!all_aligned16(a, 1)) return cudaErrorMisalignedAddress;
+    const size_t smem = fwd_mma_smem_bytes<HD>(a.tk_len);
+    const dim3 grid((a.tq_len + kFwdRows - 1) / kFwdRows, a.num_heads, a.batch);
+    attn_fwd_mma_kernel<HD><<<grid, kFwdThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), a.t[0], a.t[1], a.t[2], a.t[3], a.t[4], a.t[5],
+        static_cast<bf16*>(a.out[0]), a.tq_len, a.tk_len, a.h_width,
+        a.scale * 1.4426950408889634f);
+    return cudaGetLastError();
+  }
+};
 
 template <int HD>
 struct Bwd<bf16, HD> {
@@ -710,10 +870,7 @@ struct Bwd<bf16, HD> {
     static const cudaError_t configured = cudaFuncSetAttribute(
         attn_bwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
     if (configured != cudaSuccess) return configured;
-    bool aligned = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
-    for (int i = 0; i < 6; ++i) aligned = aligned && aligned16(a.t[i]);
-    for (int i = 0; i < 3; ++i) aligned = aligned && aligned16(a.out[i]);
-    if (!aligned) return cudaErrorMisalignedAddress;
+    if (!all_aligned16(a, 3)) return cudaErrorMisalignedAddress;
     const size_t smem = bwd_smem_bytes<bf16, HD>(a.tq_len, a.tk_len);
     const dim3 grid(a.batch, a.num_heads);
     attn_bwd_mma_kernel<HD><<<grid, kBwdThreads, smem, a.stream>>>(
@@ -726,21 +883,28 @@ struct Bwd<bf16, HD> {
   }
 };
 
-// The instantiated (dtype, head_dim) pairs; dtype 0 = float32, 1 = bfloat16.
+// The instantiated (dtype, head_dim) pairs: every multiple of 16 up to 128,
+// what mma.sync's k = 16 tiles (ops/fused_attention.py:HEAD_DIMS); dtype 0 =
+// float32, 1 = bfloat16.
+template <template <typename, int> class Launch, int HD>
+cudaError_t launch_width(int dtype, const Args& a) {
+  return dtype ? Launch<bf16, HD>::run(a) : Launch<float, HD>::run(a);
+}
+
 template <template <typename, int> class Launch>
 cudaError_t dispatch(int dtype, const Args& a) {
   if (a.num_heads <= 0 || a.h_width % a.num_heads) return cudaErrorInvalidValue;
-  const int head_dim = a.h_width / a.num_heads;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16:
-      return dtype ? Launch<__nv_bfloat16, 16>::run(a) : Launch<float, 16>::run(a);
-    case 32:
-      return dtype ? Launch<__nv_bfloat16, 32>::run(a) : Launch<float, 32>::run(a);
-    case 64:
-      return dtype ? Launch<__nv_bfloat16, 64>::run(a) : Launch<float, 64>::run(a);
-    default:
-      return cudaErrorInvalidValue;
+  switch (a.h_width / a.num_heads) {
+    case 16: return launch_width<Launch, 16>(dtype, a);
+    case 32: return launch_width<Launch, 32>(dtype, a);
+    case 48: return launch_width<Launch, 48>(dtype, a);
+    case 64: return launch_width<Launch, 64>(dtype, a);
+    case 80: return launch_width<Launch, 80>(dtype, a);
+    case 96: return launch_width<Launch, 96>(dtype, a);
+    case 112: return launch_width<Launch, 112>(dtype, a);
+    case 128: return launch_width<Launch, 128>(dtype, a);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -2,10 +2,12 @@
 backward.
 
 Port of neurosync_trainer_lite_tpu/ops/fused_attention.py (_fwd_kernel,
-_bwd_kernel, the custom VJP fused_rope_attention, make_tables). Both kernels
+_bwd_kernel, the custom VJP fused_rope_attention, make_tables). The kernels
 are in csrc/fused_attention.cu (its head note says what bounds them on the
-H100 and how their design answers that). The plain versions below mirror
-the Pallas bodies: rotate q and k over the full H row in fp32, then per head
+H100 and how their design answers that): bf16 runs the forward and the
+backward on the tensor cores (mma.sync, the fp32 operands split into bf16
+hi + lo), fp32 on the CUDA cores. The plain versions below mirror the
+Pallas bodies: rotate q and k over the full H row in fp32, then per head
 softmax(q·kᵀ·scale)·v in fp32, written once in v's type; the backward
 recomputes p, runs the softmax-attention VJP per head in fp32, applies the
 transpose rotation to dq and dk and rounds each output once.
@@ -30,26 +32,48 @@ from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import (
 
 #: shared memory one block may use on Hopper (232,448 bytes, opt-in above 48 KB)
 SMEM_BUDGET = 232_448
-#: head widths csrc/fused_attention.cu is instantiated for
-HEAD_DIMS = (16, 32, 64)
+#: head widths csrc/fused_attention.cu is instantiated for: every multiple of
+#: 16 up to 128, what mma.sync's k = 16 tiles (as K3's flash_attention.HEAD_DIMS)
+HEAD_DIMS = tuple(range(16, 129, 16))
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: query rows a bf16 forward block holds (csrc kFwdRows)
+FWD_ROWS = 64
 
 
-def fwd_smem_bytes(tk: int, head_dim: int) -> int:
-    """A forward block: the head's rotated K and its V, fp32."""
+def fwd_smem_bytes(tk: int, head_dim: int, itemsize: int) -> int:
+    """A forward block (csrc fwd_mma_smem_bytes, Fwd::run): bf16, the head's
+    rotated K as bf16 hi + lo and its V, then the block's FWD_ROWS rotated
+    q rows as hi + lo; fp32, the head's rotated K and its V in fp32."""
+    if itemsize == 2:
+        return (3 * tk + 2 * FWD_ROWS) * head_dim * 2
     return 2 * tk * head_dim * 4
 
 
 def bwd_smem_bytes(tq: int, tk: int, head_dim: int, itemsize: int) -> int:
-    """A backward block: rotated Q and K (fp32), V and dO (input type), and
-    three fp32 statistics per query row (csrc bwd_smem_bytes)."""
+    """A backward block: rotated Q and K (fp32, or bf16 hi + lo), V and dO
+    (input type), and three fp32 statistics per query row (csrc
+    bwd_smem_bytes)."""
     return (tq + tk) * head_dim * (4 + itemsize) + 3 * tq * 4
 
 
 def fits_smem(tq: int, tk: int, head_dim: int, itemsize: int) -> bool:
-    """Can one block of the forward and of the backward hold its head?"""
+    """Can one block of the forward and of the backward hold its head?
+
+    Head widths: the kernels take HEAD_DIMS, every multiple of 16 up to
+    128. Other widths (24, 40, 136, ...) are declined here and take the
+    composed path (rotation, head split, sdpa), where the JAX kernel runs
+    its Pallas body at any even width: the stated dispatch difference from
+    the JAX package, as K3's (flash_attention.supports). The composed path
+    rounds the rotated q and k to the input type before the products.
+
+    Lengths: both kernels' blocks must fit SMEM_BUDGET, the backward being
+    the larger (as the JAX fits_vmem budgets the backward). bf16 takes
+    Tq = Tk up to 298 at head width 64, 150 at 128; fp32 up to 224 at 64
+    and 112 at 128, so the fp32 backward refuses h = 128 at T = 128 (it
+    needs 263,680 B of the 232,448).
+    """
     return head_dim in HEAD_DIMS and max(
-        fwd_smem_bytes(tk, head_dim),
+        fwd_smem_bytes(tk, head_dim, itemsize),
         bwd_smem_bytes(tq, tk, head_dim, itemsize)) <= SMEM_BUDGET
 
 
@@ -104,6 +128,21 @@ def fused_rope_attention_bwd_plain(q, k, v, do, tables, num_heads: int,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def fwd_limit(ref: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Elementwise bound on |kernel − plain| for a plain forward result `ref`.
+
+    bf16: one bf16 ulp of the plain value (2^-7 of it), plus 1e-4 of the
+    largest value: the tensor-core kernel takes q·kᵀ from split-bf16 q and
+    k (hi·hi + hi·lo + lo·hi), so a score carries ~2^-16 of its terms, and
+    an output near zero the error of the terms it sums (the backward's
+    bound). fp32: 1e-5 of the value plus 1e-6 (the same fp32 math in
+    another order)."""
+    ref = ref.float()
+    if dtype == torch.bfloat16:
+        return 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()
+    return 1e-5 * ref.abs() + 1e-6
+
+
 def _check_inputs(name, q, k, v, tables, num_heads, more=()):
     """Raise on anything csrc/fused_attention.cu does not take (the forward
     with `more` empty, the backward with `more` = (dO,))."""
@@ -121,7 +160,7 @@ def _check_inputs(name, q, k, v, tables, num_heads, more=()):
                          f"{tuple(v.shape)}")
     head_dim = width // num_heads
     smem = (bwd_smem_bytes(tq, tk, head_dim, q.element_size()) if more
-            else fwd_smem_bytes(tk, head_dim))
+            else fwd_smem_bytes(tk, head_dim, q.element_size()))
     if width % num_heads or head_dim not in HEAD_DIMS or smem > SMEM_BUDGET:
         raise ValueError(f"{name}: Tq={tq}, Tk={tk}, H={width}, "
                          f"heads={num_heads} fail the shared-memory gate")
@@ -138,10 +177,11 @@ def _check_inputs(name, q, k, v, tables, num_heads, more=()):
 
 def fused_rope_attention_cuda(q, k, v, tables, num_heads: int,
                               scale: float) -> torch.Tensor:
-    """Launch the forward kernel; raises on anything it does not take."""
+    """Launch the forward kernel (bf16: the tensor-core one, fp32: the
+    CUDA-core one); raises on anything it does not take."""
     batch, tq, tk, width = _check_inputs("fused_rope_attention", q, k, v,
                                          tables, num_heads)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (kernels.aligned16(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

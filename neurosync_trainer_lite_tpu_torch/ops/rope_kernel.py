@@ -19,7 +19,8 @@ import torch
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: a row is staged in shared memory as fp32 without the opt-in attribute
+#: the widest row rope_rotate_cuda takes (12,288 columns), part of its
+#: interface; the kernel itself keeps no row in shared memory
 MAX_WIDTH = 48 * 1024 // 4
 
 

@@ -125,13 +125,84 @@ def test_linear_rounds_once_after_the_fp32_bias():
 
 def test_shared_memory_gate():
     """The serving and training geometry (T=128, head_dim=64) fits in bf16
-    and fp32; lengths or head widths the kernels do not take are refused
+    and fp32. At T=128 in bf16 every multiple of 16 up to 128 is taken and
+    every other width declined (it takes the composed path), as K3's
+    supports(head_dim=...). Lengths the kernels cannot hold are refused
     before dispatch. The gate is the backward's budget, as the JAX
-    fits_vmem: T=400 fits the forward alone but not the backward."""
-    assert tfua.fits_smem(128, 128, 64, 2)
+    fits_vmem: T=400 fits the forward alone but not the backward, and the
+    fp32 backward at h=128, T=128 needs 263,680 B."""
+    assert tfua.HEAD_DIMS == tuple(range(16, 129, 16))
+    for h in range(1, 200):
+        assert tfua.fits_smem(128, 128, h, 2) == (h % 16 == 0 and h <= 128), h
     assert tfua.fits_smem(128, 128, 64, 4)
-    assert tfua.fwd_smem_bytes(400, 64) <= tfua.SMEM_BUDGET
+    assert tfua.fwd_smem_bytes(400, 64, 2) <= tfua.SMEM_BUDGET
+    assert tfua.fwd_smem_bytes(400, 64, 4) <= tfua.SMEM_BUDGET
     assert not tfua.fits_smem(400, 400, 64, 2)
     assert not tfua.fits_smem(2048, 2048, 64, 2)
-    assert not tfua.fits_smem(128, 128, 128, 2)
+    assert tfua.bwd_smem_bytes(128, 128, 128, 4) == 263_680
+    assert not tfua.fits_smem(128, 128, 128, 4)
     assert not tfua.fits_smem(128, 128, 8, 2)
+
+
+# ---------------------------------------------------------------------------
+# the arithmetic of the bf16 tensor-core forward (csrc/fused_attention.cu,
+# attn_fwd_mma_kernel), emulated here, against the JAX kernel: what the card
+# computes meets the card checks' bound (fua.fwd_limit) before any card is
+# involved
+
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _split(x):
+    hi = _bf16(x)
+    return hi, _bf16(x - hi)
+
+
+def _card_forward(q, k, v, tables, n, scale):
+    """The kernel's rounding points: q and k rotated in fp32 and split into
+    bf16 hi + lo; q·kᵀ as hi·hi + hi·lo + lo·hi; exp2(fma(s, c, −m)) with
+    c = scale·log2(e) in fp32 and m = c·max s; p·v with p split and v
+    exact; the sum of exp divided out last; one bf16 rounding."""
+    qf = tfua._rot(q.float(), *tables[:3])
+    kf = tfua._rot(k.float(), *tables[3:])
+    vf = v.float()
+    hd = q.shape[-1] // n
+    c = float(np.float32(scale) * LOG2E)
+    out = torch.empty_like(qf)
+    for h in range(n):
+        sl = slice(h * hd, (h + 1) * hd)
+        (qh, ql), (kh, kl) = _split(qf[..., sl]), _split(kf[..., sl])
+        kh, kl = kh.transpose(-1, -2), kl.transpose(-1, -2)
+        s = qh @ kh + qh @ kl + ql @ kh
+        m = s.amax(-1, keepdim=True) * c
+        e = torch.exp2((s.double() * c - m.double()).float())
+        eh, el = _split(e)
+        out[..., sl] = (eh @ vf[..., sl] + el @ vf[..., sl]) / e.sum(
+            -1, keepdim=True)
+    return out.to(torch.bfloat16)
+
+
+# (B, T, H, heads): the serving and training head width 64, and 48 and 128
+@pytest.mark.parametrize("B,T,H,n", [(2, 128, 128, 2), (2, 128, 96, 2),
+                                     (2, 128, 256, 2)])
+def test_card_forward_meets_the_card_limit_against_jax(B, T, H, n):
+    """The emulated kernel against the JAX forward in bf16 (interpret mode)
+    within fua.fwd_limit, the card checks' bound: one bf16 ulp of each
+    element (2^-7 of it) plus 1e-4 of the largest output."""
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((B, T, H)).astype(np.float32)
+               for _ in range(3))
+    hd = H // n
+    theirs = jfua.fused_rope_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+        jfua.make_tables(T, T, hd, n), n, hd ** -0.5)
+    ours = _card_forward(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+                         tfua.make_tables(T, T, hd, n, "cpu"), n, hd ** -0.5)
+    ref = torch.from_numpy(np.asarray(theirs, np.float32))
+    diff = (ours.float() - ref).abs()
+    assert bool((diff <= tfua.fwd_limit(ref, torch.bfloat16)).all()), (
+        diff.max().item(), ref.abs().max().item())

@@ -7,8 +7,9 @@ nothing of JAX, so they run on a machine with the card alone:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 chip_smoke.py holds the kernels at the serving shape; these cover the edges
-it does not reach: widths that are not a multiple of a warp, several
-query tiles, cross-attention lengths, every instantiated head width, the
+it does not reach: widths that are not a multiple of a warp or of a
+16-byte vector, batch sizes, strided and misaligned inputs, several query
+tiles, cross-attention lengths, every instantiated head width, the
 autograd paths, which kernel symbol each dtype and shape runs, a small
 training step on the card and the wrappers' refusals.
 """
@@ -55,16 +56,49 @@ def _randn(gen, *shape, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 48, 1000, 1024])
+@pytest.mark.parametrize("d", [16, 20, 48, 1000, 1024])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_rope_kernel_bitwise_equals_plain(gen, dtype, d, transpose):
-    """Random tables: the circular roll formula, not only RoPE's pattern."""
+    """Random tables: the circular roll formula, not only RoPE's pattern.
+    d = 20 in bf16 (40 bytes) and 1000 in bf16 are no whole number of
+    16-byte vectors: the scalar variant."""
     x = _randn(gen, 3, 7, d, dtype=dtype)
     tables = tuple(_randn(gen, 7, d) for _ in range(3))
     out = rk.rope_rotate_cuda(x, *tables, transpose=transpose)
     torch.cuda.synchronize()
     ref = rk.rope_rotate_plain(x, *tables, transpose=transpose)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 20, 48, 1000, 1024])
+@pytest.mark.parametrize("batch", [1, 17, 128])
+def test_rope_kernel_bitwise_across_batch_sizes(gen, dtype, d, batch):
+    """Each block reuses its table rows over its share of the batch rows
+    (four at a time): every batch size, forward and transpose, bitwise."""
+    x = _randn(gen, batch, 33, d, dtype=dtype)
+    tables = tuple(_randn(gen, 33, d) for _ in range(3))
+    for transpose in (False, True):
+        out = rk.rope_rotate_cuda(x, *tables, transpose=transpose)
+        torch.cuda.synchronize()
+        assert torch.equal(out, rk.rope_rotate_plain(x, *tables,
+                                                     transpose=transpose))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope_kernel_on_strided_and_offset_inputs(gen, dtype):
+    """A non-contiguous x (the wrapper makes it contiguous) and a contiguous
+    x whose base is off the 16-byte grid (the scalar variant): bitwise."""
+    tables = rope_tables(16, 64, "cuda")
+    strided = _randn(gen, 16, 5, 64, dtype=dtype).transpose(0, 1)
+    offset = _randn(gen, 5 * 16 * 64 + 1, dtype=dtype)[1:].view(5, 16, 64)
+    assert not strided.is_contiguous() and offset.data_ptr() % 16
+    for x in (strided, offset):
+        for transpose in (False, True):
+            out = rk.rope_rotate_cuda(x, *tables, transpose=transpose)
+            torch.cuda.synchronize()
+            assert torch.equal(out, rk.rope_rotate_plain(x, *tables,
+                                                         transpose=transpose))
 
 
 def test_rope_autograd_runs_the_transpose_kernel(gen):
@@ -80,18 +114,25 @@ def test_rope_autograd_runs_the_transpose_kernel(gen):
 
 
 SHAPES = [  # B, Tq, Tk, H, heads
-    (2, 300, 128, 64, 4),      # three query tiles, the last one partial
+    (2, 300, 128, 64, 4),      # query tiles of 64 and 128, the last partial
     (3, 37, 37, 64, 4),        # head_dim 16, as the reference fixture
     (2, 16, 24, 128, 4),       # head_dim 32, cross-attention lengths
     (1, 128, 128, 1024, 16),   # head_dim 64, the serving row
     (1, 64, 400, 256, 4),      # a long key strip near the smem gate
+    (2, 128, 128, 768, 16),    # the widths off the powers of two
+    (1, 128, 128, 640, 8),
+    (1, 64, 64, 768, 8),
+    (1, 64, 64, 896, 8),
+    (2, 128, 128, 1024, 8),    # head_dim 128
+    (2, 100, 100, 1024, 16),   # Tq off the 16-row tile
+    (2, 64, 72, 1024, 16),     # Tk off the 64-key step
 ]
 
 
 @pytest.mark.parametrize("B,Tq,Tk,H,n", SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attention_kernel_matches_plain(gen, B, Tq, Tk, H, n, dtype):
-    """bf16: one bf16 rounding apart (2^-7 relative); fp32: summation order."""
+    """Within fua.fwd_limit of the plain version; bitwise repeatable."""
     q = _randn(gen, B, Tq, H, dtype=dtype)
     k = _randn(gen, B, Tk, H, dtype=dtype)
     v = _randn(gen, B, Tk, H, dtype=dtype)
@@ -100,10 +141,10 @@ def test_fused_attention_kernel_matches_plain(gen, B, Tq, Tk, H, n, dtype):
     out = fua.fused_rope_attention_cuda(q, k, v, tables, n, scale)
     torch.cuda.synchronize()
     ref = fua.fused_rope_attention_plain(q, k, v, tables, n, scale)
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     diff = (out.float() - ref.float()).abs()
-    assert bool((diff <= rel * ref.float().abs() + 1e-6).all()), \
-        diff.max().item()
+    assert bool((diff <= fua.fwd_limit(ref, dtype)).all()), diff.max().item()
+    assert torch.equal(out, fua.fused_rope_attention_cuda(q, k, v, tables, n,
+                                                          scale))
 
 
 BWD_SHAPES = [  # B, Tq, Tk, H, heads: every block loops over rows
@@ -113,6 +154,8 @@ BWD_SHAPES = [  # B, Tq, Tk, H, heads: every block loops over rows
     (2, 128, 128, 1024, 16),   # head_dim 64, the training row
     (2, 100, 100, 1024, 16),   # the training width, rows off the 16-row tiles
     (1, 192, 192, 256, 4),     # 3 query and key steps, 3 row tiles a warp
+    (2, 128, 128, 768, 16),    # head_dim 48
+    (2, 112, 112, 1024, 8),    # head_dim 128, the longest fp32 T the gate takes
 ]
 
 
@@ -145,6 +188,23 @@ def test_fused_attention_backward_kernel_matches_plain(gen, B, Tq, Tk, H, n,
             (name, diff.max().item())
     again = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n, scale)
     assert all(torch.equal(a, b) for a, b in zip(out, again))  # no atomics
+
+
+def test_fused_attention_gate_refuses_the_fp32_backward_at_h128(gen):
+    """At h = 128 and T = 128 the fp32 backward needs 263,680 B of shared
+    memory: fits_smem declines (the model takes the composed path), the
+    fp32 backward raises, and the bf16 one and both forwards run."""
+    q = _randn(gen, 1, 128, 1024)
+    tables = fua.make_tables(128, 128, 128, 8, "cuda")
+    assert not fua.fits_smem(128, 128, 128, 4)
+    assert fua.fits_smem(128, 128, 128, 2)
+    with pytest.raises(ValueError, match="gate"):
+        fua.fused_rope_attention_bwd_cuda(q, q, q, q, tables, 8, 128 ** -0.5)
+    for x in (q, q.bfloat16()):
+        fua.fused_rope_attention_cuda(x, x, x, tables, 8, 128 ** -0.5)
+    qb = q.bfloat16()
+    fua.fused_rope_attention_bwd_cuda(qb, qb, qb, qb, tables, 8, 128 ** -0.5)
+    torch.cuda.synchronize()
 
 
 def test_fused_attention_autograd_runs_both_kernels(gen):
@@ -365,6 +425,25 @@ def test_fused_attention_backward_runs_the_tensor_core_symbol_in_bf16(
     names = _kernel_names(run, "attn_bwd")
     mma = any("attn_bwd_mma_kernel" in n for n in names)
     cores = any("attn_bwd_kernel" in n for n in names)
+    assert (mma, cores) == ((True, False) if dtype == torch.bfloat16
+                            else (False, True)), names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_attention_forward_runs_the_tensor_core_symbol_in_bf16(
+        gen, dtype):
+    """By the profiler's kernel names: the bf16 K4 forward runs the
+    mma.sync kernel, fp32 the CUDA-core one."""
+    q, k, v = (_randn(gen, 2, 128, 1024, dtype=dtype) for _ in range(3))
+    tables = fua.make_tables(128, 128, 64, 16, "cuda")
+
+    def run():
+        fua.fused_rope_attention_cuda(q, k, v, tables, 16, 0.125)
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "attn_fwd")
+    mma = any("attn_fwd_mma_kernel" in n for n in names)
+    cores = any("attn_fwd_kernel" in n for n in names)
     assert (mma, cores) == ((True, False) if dtype == torch.bfloat16
                             else (False, True)), names
 
