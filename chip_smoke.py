@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve-s2   # phases 1, 2 and 7b alone
+    python3 chip_smoke.py --only live       # phases 1, 2 and 7c alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -70,6 +71,28 @@ exits non-zero before its result line.
    (4 chunks): K3 forward 24 and K1 50 launches a request at 'auto' and
    'pallas', [1801, 61] finite, within 5% of 'xla' (the composed path),
    with the same timings, 'xla' timed too: the same request without K3.
+7c. Live serving at full width, 'auto' and 'pallas' (the same seeded
+   weights): K1 and the K4 forward first at the live decode batches [1,
+   128, 1024] and [8, 128, 1024] against their plain versions; then one
+   MultiStreamer of 8 sessions (default trim settings, warmed up), each
+   fed its own seeded 30 s clip in 0.5 s pushes (four int16, four
+   float32), opened 3 ticks apart, one tick() a round of pushes, then
+   flushed and closed: the main path run, launches counted from zero and
+   asserted (K1 50 a decode forward at 'auto'; K1 2 and the K4 forward 24
+   at 'pallas'). Prints the tick p50, p95 and max (metrics_snapshot),
+   decode ticks, frames out and frames/s across the sessions. Checks
+   ring_recoveries and watchdog_flips 0; each session's frames against an
+   independent BlendshapeStreamer fed the same pushes (bf16: within 5% of
+   max|out|, as 'auto' against 'pallas'; again in fp32 for two 10 s
+   sessions: within 1e-4 of max|out|), against the offline API over its
+   whole clip on the core rows (the CMVN drift of a trimmed buffer:
+   correlation ≥ 0.98, mean abs error ≤ 5% of max|out|), and 'auto'
+   against 'pallas' within 5%. Then the card's busy share and top kernels
+   of a profiled repeat, one session at real-time cadence for 10 s (0.5 s
+   pushes with sleeps: the push → frames time and how far the frames
+   trail the audio), and the HTTP server on 127.0.0.1 in a thread: the
+   batch endpoint equal to the API, an s16 session opened, pushed,
+   flushed and closed, /metrics and /healthz.
 8. Trains the full-width model (16,384 frames a step, seeded random
    features and targets, the same seeded weights): (a) Config(): 'auto',
    dropout 0.3; (b) 'pallas', dropout 0, which runs the K4 forward and
@@ -118,9 +141,9 @@ exits non-zero before its result line.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
-runs, the serving runs and one training step at each configuration, each
-counted from zero; launches_by_path: each run's own count); the last line
-the result.
+runs, the serving runs, the live runs and one training step at each
+configuration, each counted from zero; launches_by_path: each run's own
+count); the last line the result.
 """
 
 from __future__ import annotations
@@ -142,6 +165,10 @@ BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 #: exp2 on the MUFU: 132 SMs x 16 a clock x 1.98 GHz boost (H100 SXM)
 EXP_PER_S = 132 * 16 * 1.98e9
 SERVE_SECONDS = 30             # the timed request: a seeded int16 WAV
+#: the live phase: sessions, seconds of audio each, seconds a push, ticks
+#: between two sessions' opens, and the real-time session's seconds
+LIVE_SESSIONS, LIVE_SECONDS, LIVE_PUSH, LIVE_STAGGER = 8, 30, 0.5, 3
+LIVE_LATENCY_SECONDS, LIVE_FP32_SECONDS = 10, 10
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
@@ -954,6 +981,387 @@ def serve_long(torch, np):
     return main_path
 
 
+def live_kernel_checks(torch):
+    """K1 and the K4 forward at the live path's decode batches [D, 128,
+    1024], D = 1 and 8 (the decode bucket's ends), bf16, against their
+    plain versions (K1 bitwise, K4 within fua.fwd_limit)."""
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+    from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
+    from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
+
+    _, T, H, n = serving_shape()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    tables = rope_tables(T, H // n, "cuda", tile=n)
+    k4_tables = fua.make_tables(T, T, H // n, n, "cuda")
+    err = {"rope_rotate": 0.0, "fused_rope_attention": 0.0}
+    for batch in (1, LIVE_SESSIONS):
+        x, q, k, v = (torch.randn(batch, T, H, device="cuda", generator=gen)
+                      .to(torch.bfloat16) for _ in range(4))
+        with torch.no_grad():
+            out = rk.rope_rotate_cuda(x, *tables)
+            torch.cuda.synchronize()
+            ref = rk.rope_rotate_plain(x, *tables)
+        e = (out.float() - ref.float()).abs().max().item()
+        err["rope_rotate"] = max(err["rope_rotate"], e)
+        check(torch.equal(out, ref),
+              f"K1 rope_rotate at the live decode batch [{batch}, {T}, {H}] "
+              f"bf16 bitwise equal to the plain version (max abs err {e})")
+        err["fused_rope_attention"] = max(
+            err["fused_rope_attention"],
+            k4_forward_check(torch, fua, q, k, v, k4_tables, n))
+    return err
+
+
+def live_clips(np, cfg):
+    """Each session's seeded 30 s of int16 PCM (noise at 0.3 of full
+    scale)."""
+    rng = np.random.default_rng(8)
+    return [(rng.standard_normal(cfg.sr * LIVE_SECONDS) * 0.3 * 32767)
+            .clip(-32768, 32767).astype(np.int16)
+            for _ in range(LIVE_SESSIONS)]
+
+
+def pcm_wav(pcm, sr: int) -> bytes:
+    """16-bit mono WAV bytes of int16 samples, as they are."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def live_pushes(np, clip, as_int16: bool, step):
+    """A session's pushes of `step` samples: int16, or the same samples as
+    float32 (pcm / 32768). The first half of a run's sessions push int16,
+    the second half float32."""
+    for i in range(0, len(clip), step):
+        chunk = clip[i: i + step]
+        yield chunk if as_int16 else chunk.astype(np.float32) / 32768.0
+
+
+def live_run(torch, np, ms, clips, cfg):
+    """The live schedule through `ms`: session j opens at tick
+    LIVE_STAGGER·j and pushes LIVE_PUSH s a tick, one tick() a round of
+    pushes, then each session is flushed and closed. Returns ({j: frames},
+    wall s)."""
+    step = int(cfg.sr * LIVE_PUSH)
+    feeds, sids, out = {}, {}, {}
+    t0 = time.perf_counter()
+    for r in range(-(-len(clips[0]) // step) + LIVE_STAGGER * (len(clips) - 1)):
+        if r % LIVE_STAGGER == 0 and r // LIVE_STAGGER < len(clips):
+            j = r // LIVE_STAGGER
+            sids[j] = ms.open()
+            feeds[j] = live_pushes(np, clips[j], j < len(clips) // 2, step)
+            out[j] = []
+        for j, sid in sids.items():
+            chunk = next(feeds[j], None)
+            if chunk is not None:
+                ms.push_audio(sid, chunk)
+        ms.tick()
+        for j, sid in sids.items():
+            out[j].append(ms.pop_frames(sid))
+    for j, sid in sids.items():
+        ms.flush(sid)
+        out[j].append(ms.pop_frames(sid))
+        ms.close(sid)
+    torch.cuda.synchronize()
+    return ({j: np.concatenate(f) for j, f in out.items()},
+            time.perf_counter() - t0)
+
+
+def live_latency(torch, np, ms, cfg, clip) -> None:
+    """One session at real-time cadence: a LIVE_PUSH s push every LIVE_PUSH
+    s of wall time for LIVE_LATENCY_SECONDS, each followed by tick() and
+    pop_frames(); prints the wall time of the rounds that returned frames
+    and how far the finalised frames trail the pushed audio."""
+    step = int(cfg.sr * LIVE_PUSH)
+    sid = ms.open()
+    ms_out, lag, pushed, frames = [], [], 0, 0
+    start = time.perf_counter()
+    for p in range(int(LIVE_LATENCY_SECONDS / LIVE_PUSH)):
+        time.sleep(max(0.0, start + p * LIVE_PUSH - time.perf_counter()))
+        t0 = time.perf_counter()
+        ms.push_audio(sid, clip[p * step: (p + 1) * step])
+        ms.tick()
+        got = ms.pop_frames(sid)
+        dt = (time.perf_counter() - t0) * 1e3
+        pushed += step
+        frames += len(got)
+        if len(got):
+            ms_out.append(dt)
+            lag.append(pushed / cfg.sr - frames / cfg.frame_rate)
+    ms.flush(sid)
+    ms.pop_frames(sid)
+    ms.close(sid)
+    check(len(ms_out) > 0, "the real-time session returned frames")
+    print(f"live latency ('auto', one session, {LIVE_PUSH} s pushes at "
+          f"real-time cadence for {LIVE_LATENCY_SECONDS} s, host clock): "
+          f"{len(ms_out)} of {int(LIVE_LATENCY_SECONDS / LIVE_PUSH)} push "
+          f"rounds returned frames, push → frames {statistics.median(ms_out):.3f} "
+          f"ms median, {max(ms_out):.3f} ms max; finalised frames trail the "
+          f"pushed audio by {min(lag):.3f}–{max(lag):.3f} s", flush=True)
+
+
+def live_http(torch, np, model, cfg, clip) -> None:
+    """The HTTP server on 127.0.0.1 (an ephemeral port, in a thread) with
+    the same model: the batch endpoint equals the API, a live session in
+    s16 opens, pushes, flushes and closes, /metrics and /healthz answer."""
+    import threading
+    import urllib.request
+
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.inference.server import serve
+    from neurosync_trainer_lite_tpu_torch.ops.frontend import num_frames_60
+
+    httpd = serve(model, cfg, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def call(path, data=None, headers=None):
+        req = urllib.request.Request(base + path, data=data, headers=headers
+                                     or {}, method="GET" if data is None
+                                     else "POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.load(r)
+
+    try:
+        wav = (REPO / "dataset" / "test_set" / "audio.wav").read_bytes()
+        got = np.asarray(call("/audio_to_blendshapes", wav)["blendshapes"])
+        want = generate_facial_data_from_bytes(wav, model, cfg)
+        e, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        check(got.shape == want.shape and e <= 1e-6 * scale,
+              f"HTTP POST /audio_to_blendshapes equals the API's output "
+              f"{want.shape} (max abs diff {e})")
+        sid = call("/session/open", b"")["session"]
+        pcm = clip[: 3 * cfg.sr]
+        step = int(cfg.sr * LIVE_PUSH)
+        frames = []
+        for i in range(0, len(pcm), step):
+            r = call(f"/session/{sid}/audio", pcm[i: i + step].tobytes(),
+                     {"X-Audio-Format": "s16"})
+            frames += r["blendshapes"]
+        frames += call(f"/session/{sid}/flush", b"")["blendshapes"]
+        check(call(f"/session/{sid}/close", b"") == {"ok": True},
+              "HTTP live session closed")
+        frames = np.asarray(frames)
+        n = num_frames_60(len(pcm), int(0.01667 * cfg.sr))
+        check(frames.shape == (n, cfg.output_dim)
+              and bool(np.isfinite(frames).all()),
+              f"HTTP live session (s16 pushes of {LIVE_PUSH} s): "
+              f"{frames.shape} finite frames, {n} expected")
+        m = call("/metrics")
+        check(call("/healthz") == {"ok": True} and m["streamer_started"]
+              and m["ticks"] > 0 and m["live_sessions"] == 0
+              and m["ring_recoveries"] == 0 and m["watchdog_flips"] == 0,
+              f"HTTP /healthz and /metrics answer: {m}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+
+
+def live_against_streamer(np, model, cfg, ms, j, clip, got, as_int16: bool,
+                          limit: float) -> float:
+    """Session j's frames `got` against an independent BlendshapeStreamer
+    fed the same pushes with the MultiStreamer's trim settings, within
+    `limit` of max|out|. Returns the max abs error over max|out|."""
+    from neurosync_trainer_lite_tpu_torch.inference.streaming import (
+        BlendshapeStreamer)
+
+    single = BlendshapeStreamer(model, cfg)
+    single.TRIM_THRESHOLD_FRAMES = ms.trim_threshold
+    single.TRIM_MARGIN_FRAMES = ms.trim_margin
+    for chunk in live_pushes(np, clip, as_int16, int(cfg.sr * LIVE_PUSH)):
+        single.push_audio(chunk)
+    single.flush()
+    want = single.pop_frames()
+    scale = float(np.abs(want).max())
+    diff = np.abs(got - want) if got.shape == want.shape else np.array(
+        [math.inf])
+    e = float(diff.max())
+    check(e <= limit * scale,
+          f"live session {j} ({'int16' if as_int16 else 'float32'} pushes, "
+          f"{'bf16' if cfg.use_amp else 'fp32'}) against "
+          f"an independent BlendshapeStreamer within {limit:g} of max|out| "
+          f"(max abs err {e:.3e}, mean {float(diff.mean()):.3e}, max|out| "
+          f"{scale:.3e})")
+    return e / scale
+
+
+def live_fp32(torch, np, clips) -> float:
+    """The live path's arithmetic without bf16: the full-width model in
+    fp32 ('auto'), two sessions of LIVE_FP32_SECONDS through a
+    MultiStreamer, each against its own BlendshapeStreamer within 1e-4 of
+    max|out| (fp32 features that differ in summation order, ~1e-6; a
+    misplaced window or row would differ by O(1)). Returns the largest
+    error over max|out|."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.inference.multi_stream import (
+        MultiStreamer)
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
+
+    cfg = Config(dropout=0.0, use_amp=False)
+    model = init_seq2seq(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda").eval()
+    ms = MultiStreamer(model, cfg, max_sessions=LIVE_SESSIONS)
+    short = [clip[: cfg.sr * LIVE_FP32_SECONDS] for clip in
+             (clips[0], clips[-1])]
+    outputs, _ = live_run(torch, np, ms, short, cfg)
+    err = max(live_against_streamer(np, model, cfg, ms, j, clip, outputs[j],
+                                    j == 0, 1e-4)
+              for j, clip in enumerate(short))
+    del model, ms
+    return err
+
+
+def live_models(torch):
+    """Config() at dropout 0 and the full-width model on seeded weights, at
+    'auto' and at 'pallas'."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+        Seq2Seq, init_seq2seq)
+
+    cfg = Config(dropout=0.0)
+    models = {"auto": init_seq2seq(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda").eval()}
+    models["pallas"] = Seq2Seq(cfg.replace(attention_impl="pallas"), "cuda")
+    models["pallas"].load_state_dict(models["auto"].state_dict())
+    models["pallas"].eval()
+    return cfg, models
+
+
+def live(torch, np):
+    """Phase 7c: live serving of the full-width model at 'auto' and
+    'pallas': LIVE_SESSIONS sessions of LIVE_SECONDS s each through one
+    MultiStreamer (the main path run, launches counted from zero), held
+    against independent BlendshapeStreamers and the offline API; then a
+    profiled repeat, one session at real-time cadence, and the HTTP
+    server."""
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.inference.multi_stream import (
+        MultiStreamer)
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+
+    err = live_kernel_checks(torch)
+    cfg, models = live_models(torch)
+    clips = live_clips(np, cfg)
+    streamers = {}
+    for impl, model in models.items():
+        ms = MultiStreamer(model, cfg, max_sessions=LIVE_SESSIONS)
+        t0 = time.perf_counter()
+        n = ms.warmup()
+        print(f"live: MultiStreamer at '{impl}', {LIVE_SESSIONS} sessions, "
+              f"ring [{ms._buf.shape[0]}, {ms._buf.shape[1]}] fp32, push "
+              f"capacity {ms.push_capacity}, {ms._t60_cap} feature rows, "
+              f"f_win {ms.f_win}, decode cap {ms.decode_bucket_cap}; warmup "
+              f"{n} runs in {time.perf_counter() - t0:.3f} s", flush=True)
+        streamers[impl] = ms
+
+    # the main path run: counts from zero, both impls
+    forwards = {}
+    hooks = [model.register_forward_hook(
+        lambda *_, impl=impl: forwards.__setitem__(
+            impl, forwards.get(impl, 0) + 1))
+        for impl, model in models.items()]
+    kernels.reset_launches()
+    launches, outputs = {}, {}
+    for impl, ms in streamers.items():
+        before = dict(kernels.LAUNCHES)
+        outputs[impl], wall = live_run(torch, np, ms, clips, cfg)
+        launches[impl] = {name: count - before.get(name, 0)
+                          for name, count in kernels.LAUNCHES.items()
+                          if count - before.get(name, 0)}
+        m = ms.metrics_snapshot()
+        total = sum(len(f) for f in outputs[impl].values())
+        print(f"live at '{impl}': {m['ticks']} ticks, tick p50 "
+              f"{m['tick_p50_ms']} ms, p95 {m['tick_p95_ms']} ms, max "
+              f"{m['tick_max_ms']} ms (metrics_snapshot, host clock); "
+              f"{m['decode_ticks']} decode ticks, {m['frames_out']} frames "
+              f"out, {forwards.get(impl, 0)} decode forwards; {total} frames "
+              f"in {wall:.3f} s: {total / wall:.1f} frames/s across "
+              f"{LIVE_SESSIONS} sessions", flush=True)
+        check(m["ring_recoveries"] == 0 and m["watchdog_flips"] == 0,
+              f"live at '{impl}': ring_recoveries {m['ring_recoveries']} "
+              f"and watchdog_flips {m['watchdog_flips']} are 0")
+        check(m["frames_out"] == total, f"live at '{impl}': frames_out "
+              f"{m['frames_out']} counts the {total} frames popped")
+    main_path = dict(kernels.LAUNCHES)
+    for hook in hooks:
+        hook.remove()
+    expected = {"auto": {"rope_rotate": 50},
+                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
+    for impl in models:
+        want = {name: count * forwards[impl]
+                for name, count in expected[impl].items()}
+        check(launches[impl] == want,
+              f"live at '{impl}': kernel launches {launches[impl]} == "
+              f"{expected[impl]} a decode forward x {forwards[impl]}")
+    check(main_path.get("rope_rotate", 0) > 0
+          and main_path.get("fused_rope_attention", 0) > 0,
+          f"K1 and the K4 forward ran in the live path run: {main_path}")
+
+    n = int(0.01667 * cfg.sr)
+    errs = {"streamer": 0.0, "offline": 0.0}
+    for j, clip in enumerate(clips):
+        got = outputs["auto"][j]
+        want_frames = (len(clip) + 2 * (n // 2)) // (n // 2) - 1
+        check(got.shape == (want_frames // 2 + want_frames % 2,
+                            cfg.output_dim) and bool(np.isfinite(got).all()),
+              f"live session {j}: {got.shape} finite frames")
+        # bf16 over 16 layers: fp32 features that differ in summation order
+        # (other pad buckets) round to bf16 differently here and there; the
+        # serve phase's 5% of max|out| for bf16 roundings at other places
+        errs["streamer"] = max(errs["streamer"], live_against_streamer(
+            np, models["auto"], cfg, streamers["auto"], j, clip, got,
+            j < LIVE_SESSIONS // 2, 0.05))
+        offline = generate_facial_data_from_bytes(pcm_wav(clip, cfg.sr),
+                                                  models["auto"], cfg)
+        core = len(offline) - cfg.frame_size
+        a, b = got[:core], offline[:core]
+        scale = float(np.abs(b).max())
+        mean_e = float(np.abs(a - b).mean())
+        corr = float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+        errs["offline"] = max(errs["offline"], float(np.abs(a - b).max())
+                              / scale)
+        check(got.shape == offline.shape and corr >= 0.98
+              and mean_e <= 0.05 * scale,
+              f"live session {j} against the offline API on its {core} core "
+              f"rows, to the CMVN drift of a trimmed buffer: correlation "
+              f"{corr:.5f} >= 0.98, mean abs err {mean_e:.3e} <= 5% of "
+              f"max|out| {scale:.3e} (max abs err "
+              f"{float(np.abs(a - b).max()):.3e})")
+    for j in outputs["auto"]:
+        a, p = outputs["auto"][j], outputs["pallas"][j]
+        e, scale = float(np.abs(a - p).max()), float(np.abs(a).max())
+        check(a.shape == p.shape and e <= 0.05 * scale,
+              f"live session {j}: 'auto' and 'pallas' agree within 5% of "
+              f"max|out| (max abs diff {e:.3e}, max|out| {scale:.3e})")
+    errs["streamer fp32"] = live_fp32(torch, np, clips)
+    print(f"live: largest error against the streamers {errs['streamer']:.3e} "
+          f"(bf16), {errs['streamer fp32']:.3e} (fp32) "
+          f"and against the offline API {errs['offline']:.3e} of max|out|; "
+          f"kernel checks at D = 1, {LIVE_SESSIONS}: {err}", flush=True)
+
+    ms = MultiStreamer(models["auto"], cfg, max_sessions=LIVE_SESSIONS)
+    ms.warmup()
+    profile_once(torch, lambda: live_run(torch, np, ms, clips, cfg),
+                 f"live run at 'auto' ({LIVE_SESSIONS} sessions of "
+                 f"{LIVE_SECONDS} s)", top=8)
+    live_latency(torch, np, streamers["auto"], cfg, clips[0])
+    live_http(torch, np, models["auto"], cfg, clips[0])
+    del models, streamers, ms
+    torch.cuda.empty_cache()
+    return main_path
+
+
 def reference_goldens(torch, np):
     """Phase 6: the reference implementation's own outputs, on the card."""
     from neurosync_trainer_lite_tpu_torch.config import Config
@@ -1646,9 +2054,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("serve-s2",),
-        help="build the kernels and run phase 7b alone, printing no result "
-             "line: to time the (s2) request of two trees side by side")
+        "--only", choices=("serve-s2", "live"),
+        help="build the kernels and run phase 7b (serve-s2) or 7c (live) "
+             "alone, printing no result line: to time the (s2) request or "
+             "the live run of two trees side by side")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1670,8 +2079,8 @@ def main() -> int:
     for _, log in built.values():
         print_ptxas_summary(log)
     sass_counts(kernels)
-    if args.only == "serve-s2":
-        serve_long(torch, np)
+    if args.only:
+        {"serve-s2": serve_long, "live": live}[args.only](torch, np)
         print(card, flush=True)
         return 0
 
@@ -1714,7 +2123,8 @@ def main() -> int:
     k3_checks(torch, records)
     k2_checks(torch, records)
     reference_goldens(torch, np)
-    paths = {"serve": serve(torch, np), "serve (s2)": serve_long(torch, np)}
+    paths = {"serve": serve(torch, np), "serve (s2)": serve_long(torch, np),
+             "live": live(torch, np)}
     train_paths, step_a = train(torch)
     paths.update(train_paths)
     train_entry_point(torch, np, step_a)

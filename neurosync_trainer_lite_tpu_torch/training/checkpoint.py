@@ -196,6 +196,11 @@ def _load_state(path: str) -> tuple[dict, dict]:
     """(meta, {'model', 'optimizer'}) of a complete checkpoint directory,
     tensors on the host."""
     path = _resolve_complete_checkpoint(os.path.abspath(path))
+    if not os.path.exists(os.path.join(path, _STATE_FILE)):
+        raise FileNotFoundError(
+            f"{path} holds no {_STATE_FILE}: not a checkpoint of this "
+            f"package (the JAX package's Orbax directories are not readable "
+            f"here; load its model.pth export)")
     with open(os.path.join(path, _META_FILE)) as f:
         meta = json.load(f)
     blob = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",

@@ -30,8 +30,19 @@ from neurosync_trainer_lite_tpu_torch.ops.fused_attention import (
     fused_rope_attention_cuda,
     make_tables,
 )
+from neurosync_trainer_lite_tpu_torch.inference.multi_stream import (
+    MultiStreamer,
+)
+from neurosync_trainer_lite_tpu_torch.inference.server import (
+    main as server_main,
+    serve,
+)
+from neurosync_trainer_lite_tpu_torch.inference.streaming import (
+    BlendshapeStreamer,
+)
 from neurosync_trainer_lite_tpu_torch.ops.frontend import (
     extract_audio_features as frontend_features,
+    extract_audio_features_bucketed,
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
 from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import rope_rotate_cuda
@@ -60,7 +71,10 @@ bad = sorted(n for n in sys.modules
                               "neurosync_trainer_lite_tpu.", "pandas.",
                               "matplotlib.")))
 need = [pkg.__name__ + m for m in (".ops.flash_attention", ".ops.ffn_bwd",
-                                   ".training.loop", ".train")]
+                                   ".training.loop", ".train",
+                                   ".inference.streaming",
+                                   ".inference.multi_stream",
+                                   ".inference.server")]
 print(len(names), bad, [m for m in need if m not in names])
 sys.exit(1 if bad or len(names) < 15 or any(m not in names for m in need)
          else 0)
@@ -98,6 +112,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py", "--only", "serve-s2"],
+                                  ["chip_smoke.py", "--only", "live"],
                                   ["k3_variants.py"], ["k2_variants.py"]])
 def test_card_scripts_refuse_to_run_without_a_card(argv):
     """The other ways to run the card scripts exit non-zero too, without a
@@ -139,6 +154,12 @@ ENTRY_POINTS = {
         CFG, 1, generator=torch.Generator()),
     "train_model": lambda: train_model(CFG),
     "train.main": lambda: train_main(["--tiny"]),
+    "bucketed frontend": lambda: extract_audio_features_bucketed(
+        np.zeros(44100, np.float32)),
+    "BlendshapeStreamer": lambda: BlendshapeStreamer(_cpu_model(), CFG),
+    "MultiStreamer": lambda: MultiStreamer(_cpu_model(), CFG),
+    "server.serve": lambda: serve(_cpu_model(), CFG, port=0),
+    "server.main": lambda: server_main(["--model", str(TINY)]),
 }
 
 
@@ -152,6 +173,17 @@ def test_api_refuses_a_model_on_another_device():
     wav = audio_to_bytes(np.zeros(44100), 88200)
     with pytest.raises(ValueError, match="model weights are on cpu"):
         generate_facial_data_from_bytes(wav, _cpu_model(), CFG, device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["BlendshapeStreamer", "MultiStreamer",
+                                   "server.serve"])
+def test_live_serving_refuses_a_model_on_another_device(entry):
+    make = {"BlendshapeStreamer": BlendshapeStreamer,
+            "MultiStreamer": MultiStreamer,
+            "server.serve": lambda m, c, device: serve(m, c, port=0,
+                                                       device=device)}[entry]
+    with pytest.raises(ValueError, match="model weights are on cpu"):
+        make(_cpu_model(), CFG, device="cuda")
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
