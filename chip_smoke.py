@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only serve-s2   # phases 1, 2 and 7b alone
     python3 chip_smoke.py --only live       # phases 1, 2 and 7c alone
+    python3 chip_smoke.py --only parallel   # phases 1, 2 and 12 alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -138,17 +139,40 @@ exits non-zero before its result line.
    continuing, checkpoints, backups, validation CSVs and stats written,
    model.pth serving the test clip; then the CLI
    (python -m neurosync_trainer_lite_tpu_torch.train) for 2 steps.
+12. Data parallelism (parallel/), every rank a subprocess of this script
+   (--parallel-worker) with a deadline and a process-group timeout, the
+   kernels built first by this process. (p1) One rank over NCCL: 3 steps
+   of (a) through the group and its all-reduce equal 3 steps with no group
+   bit for bit (losses, grad norms, every parameter); the same process
+   also takes the one-process references of (p2). (p2) Two ranks on the
+   one card over gloo (NCCL refuses two ranks on one card; gloo reduces
+   CUDA tensors), 64 rows each: 3 steps at 'pallas', dropout 0 (K4
+   forward and backward), at 'auto', dropout 0.3, and at 'auto', dropout
+   0.3 with grad_accum_steps 2: the two ranks' losses, grad norms and
+   parameter checksums bitwise equal, and within 1e-3 (loss) and 1e-2
+   (grad norm) relative of one process on the whole batch. Prints step ms
+   and peak memory per rank and the all-reduce's ms (the fp32 gradient
+   through the host). (p3) MeshDecoder over the two ranks on the 30 s
+   request's 17 chunks, 'auto' and 'pallas' in bf16 (5% of max|out|) and
+   'auto' in fp32 (1e-4), standalone and through process_audio_features,
+   against one rank's decode_chunks_batched. (p4) train_model at dp 2 on
+   a copy of dataset/data: one epoch, a checkpoint and a resume for a
+   second, the ranks' histories equal, rank 0's model.pth serving
+   test_set/audio.wav; epoch seconds. (p2)-(p4) share one card, so they
+   measure correctness and the reduction's cost, not scaling.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
-runs, the serving runs, the live runs and one training step at each
-configuration, each counted from zero; launches_by_path: each run's own
-count); the last line the result.
+runs, the serving runs, the live runs, one training step at each
+configuration and the parallel runs (every rank's launches), each counted
+from zero; launches_by_path: each run's own count); the last line the
+result.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import re
@@ -170,6 +194,23 @@ SERVE_SECONDS = 30             # the timed request: a seeded int16 WAV
 LIVE_SESSIONS, LIVE_SECONDS, LIVE_PUSH, LIVE_STAGGER = 8, 30, 0.5, 3
 LIVE_LATENCY_SECONDS, LIVE_FP32_SECONDS = 10, 10
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+#: the parallel phase: steps a run, the seconds its ranks may take, the
+#: seconds a collective may wait; (p2)'s runs at batch 128 x 128
+DP_STEPS, DP_RUN_TIMEOUT, DP_GROUP_TIMEOUT = 3, 600, 300
+#: (p2)'s first step against one process, relative, (loss, grad norm):
+#: before Adam only the order of the sums differs. Set from the H100's
+#: readings (PERF.md §6): loss 0 to 1.2e-7, the norm 1.8e-6 to 3.3e-5
+#: (at 'pallas', whose bf16 gradients at 64 rows round apart from 128's);
+#: the planted faults read 4.7e-4 and more in either
+DP_FIRST_STEP_LIMITS = (1e-5, 2e-4)
+#: the faults planted in (p2) that DP_FIRST_STEP_LIMITS must catch, each
+#: beside the run it is compared with
+DP_PLANTED = {"contiguous rows, accum 2": "'auto', dropout 0.3, accum 2",
+              "masks over the local rows": "'auto', dropout 0.3"}
+DP_CONFIGS = {"'pallas', dropout 0": dict(attention_impl="pallas",
+                                          dropout=0.0),
+              "'auto', dropout 0.3": {},
+              "'auto', dropout 0.3, accum 2": dict(grad_accum_steps=2)}
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
 #: (s2) the 30 s request at frame_size 512 (4 chunks)
@@ -428,8 +469,11 @@ def kernel_checks(torch, records):
     err = {"rope_rotate": 0.0, "fused_rope_attention": 0.0}
     table_sets = {"global": rope_tables(T, H, "cuda"),
                   "tiled": rope_tables(T, hd, "cuda", tile=n)}
-    # the serving batch (the 30 s request's chunks) and the training batch
-    for batch in (B, train_batch_size):
+    # the serving batch (the 30 s request's chunks), the training batch, and
+    # a rank's share of them in phase 12 (two ranks): 64 rows ((p2), (p4)),
+    # 32 a micro-batch under accumulation ((p2)), 9 of the 17 chunks ((p3))
+    rank_batches = (train_batch_size // 2, train_batch_size // 4, -(-B // 2))
+    for batch in (B, train_batch_size, *rank_batches):
         for dtype in (torch.bfloat16, torch.float32):
             x = torch.randn(batch, T, H, device="cuda",
                             generator=gen).to(dtype)
@@ -622,8 +666,9 @@ def k4_widths(torch, gen) -> float:
 
 
 def k4_backward(torch, gen):
-    """The K4 backward at the training shape: against its plain version in
-    bf16 and fp32, then timed in bf16."""
+    """The K4 backward at the training shape and at a phase 12 rank's 64
+    rows of it: against its plain version in bf16 and fp32, then timed in
+    bf16 at the training shape."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 
@@ -633,8 +678,9 @@ def k4_backward(torch, gen):
     hd, scale = H // n, (H // n) ** -0.5
     tables = fua.make_tables(T, T, hd, n, "cuda")
     worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, do = (torch.randn(B, T, H, device="cuda", generator=gen)
+    for rows, dtype in itertools.product((B, B // 2),
+                                         (torch.bfloat16, torch.float32)):
+        q, k, v, do = (torch.randn(rows, T, H, device="cuda", generator=gen)
                        .to(dtype) for _ in range(4))
         out = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n, scale)
         torch.cuda.synchronize()
@@ -650,13 +696,14 @@ def k4_backward(torch, gen):
             e = diff.max().item()
             worst = max(worst, e)
             check(a.dtype == dtype and bool((diff <= limit).all()),
-                  f"K4 backward {name} {dtype} within {rel:g}·|plain| + "
-                  f"1e-4·max|plain| of the plain version (max abs err {e}, "
-                  f"max|plain| {b.float().abs().max().item():.4f})")
+                  f"K4 backward {name} [{rows}, {T}, {H}] {dtype} within "
+                  f"{rel:g}·|plain| + 1e-4·max|plain| of the plain version "
+                  f"(max abs err {e}, max|plain| "
+                  f"{b.float().abs().max().item():.4f})")
         again = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n,
                                                   scale)
         check(all(torch.equal(a, b) for a, b in zip(out, again)),
-              f"K4 backward {dtype} bitwise repeatable")
+              f"K4 backward [{rows}, {T}, {H}] {dtype} bitwise repeatable")
         del q, k, v, do, out, ref, again
 
     q, k, v, do = (torch.randn(B, T, H, device="cuda", generator=gen)
@@ -2022,6 +2069,449 @@ def gradients_in_model(torch, weights, src, trg, *, fp32, baseline, kernel,
           f"{abs(fault_norm - np_) / np_:.3e})")
 
 
+def dp_weights(torch, cfg):
+    """The training phase's seeded full-width weights and batch (train()),
+    drawn alike in every process."""
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    return (weights, *train_batch(torch, cfg, gen))
+
+
+def params_checksum(torch, model) -> int:
+    """The sum of the parameters' fp32 bit patterns: equal bits, equal sum."""
+    return sum(int(p.detach().view(torch.int32).to(torch.int64).sum())
+               for p in model.parameters())
+
+
+def dp_run(torch, cfg, weights, src, trg, mesh, *, keep=False,
+           steps=DP_STEPS, rows=None) -> dict:
+    """`steps` steps of cfg from `weights` on this rank's rows of (src,
+    trg) (parallel/mesh.py:batch_rows, or `rows`; every row without a
+    mesh), one step generator as train_config's: losses, grad norms, the
+    median step ms, the peak device memory, the parameters' checksum and,
+    with keep, the parameters on the host."""
+    from neurosync_trainer_lite_tpu_torch.parallel import batch_rows
+    from neurosync_trainer_lite_tpu_torch.training.step import (
+        init_train_state, make_train_step)
+
+    state = init_train_state(cfg, 1000, device="cuda", state_dict=weights,
+                             mesh=mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    if rows is None:
+        rows = batch_rows(mesh, src.shape[0], cfg.grad_accum_steps)
+    rows = torch.from_numpy(rows).cuda()
+    s, t = src[rows], trg[rows]
+    gen = torch.Generator().manual_seed(4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        _, loss, norm = step(state, s, t, gen)
+        losses.append(float(loss))       # float() synchronises
+        norms.append(float(norm))
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"losses": losses, "norms": norms,
+           "step_ms": statistics.median(times),
+           "peak": torch.cuda.max_memory_allocated(),
+           "checksum": params_checksum(torch, state.model), "rows": len(s)}
+    if keep:
+        out["params"] = [p.detach().cpu() for p in state.model.parameters()]
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_p1(torch, port: int) -> dict:
+    """(p1), one process: the references of (p1) and (p2) with no process
+    group, then step (a) through an NCCL group of one rank and its
+    all-reduce, which must equal the run without a group bit for bit."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.parallel import (
+        distributed, make_mesh)
+
+    base = Config()
+    weights, src, trg = dp_weights(torch, base)
+    refs = {label: dp_run(torch, base.replace(**kw), weights, src, trg, None,
+                          keep=not kw)
+            for label, kw in DP_CONFIGS.items()}
+    plain = refs["'auto', dropout 0.3"]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       timeout_s=DP_GROUP_TIMEOUT)
+    try:
+        mesh = make_mesh(base)
+        kernels.reset_launches()
+        got = dp_run(torch, base, weights, src, trg, mesh, keep=True)
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        distributed.destroy()
+    check(got["losses"] == plain["losses"] and got["norms"] == plain["norms"]
+          and all(torch.equal(a, b) for a, b in zip(got["params"],
+                                                     plain["params"])),
+          f"(p1) {DP_STEPS} steps of (a) through an NCCL group of one rank "
+          f"and its all-reduce equal {DP_STEPS} steps with no group bit for "
+          f"bit: losses {got['losses']}, grad norms {got['norms']}, every "
+          f"parameter")
+    print(f"(p1) one rank, NCCL: step median {got['step_ms']:.3f} ms (no "
+          f"group {plain['step_ms']:.3f}), peak device memory {got['peak']} "
+          f"bytes (no group {plain['peak']})", flush=True)
+    for run in (*refs.values(), got):
+        run.pop("params", None)
+    return {"refs": refs, "group": got, "launches": launches}
+
+
+def dp_decode(torch, np, mesh) -> dict:
+    """(p3): MeshDecoder over two ranks against decode_chunks_batched on
+    one, the 30 s request's chunks at frame_size 128, 'auto' and 'pallas'
+    in bf16 and 'auto' in fp32, standalone and through
+    process_audio_features. The launches of the MeshDecoder calls."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.data.processing import (
+        extract_audio_features)
+    from neurosync_trainer_lite_tpu_torch.inference.chunked import (
+        MeshDecoder, decode_chunks_batched, process_audio_features)
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+        Seq2Seq, init_seq2seq)
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
+
+    cfg = Config(dropout=0.0)
+    rng = np.random.default_rng(0)
+    wav = audio_to_bytes(rng.standard_normal(cfg.sr * SERVE_SECONDS)
+                         .astype(np.float32) * 0.3, cfg.sr)
+    feats, _ = extract_audio_features(wav, cfg.sr, from_bytes=True,
+                                      device="cuda")
+    weights = init_seq2seq(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda").state_dict()
+    runs = {"'auto' bf16": cfg, "'pallas' bf16": cfg.replace(
+        attention_impl="pallas"), "'auto' fp32": cfg.replace(use_amp=False)}
+    models, wants = {}, {}
+    for label, c in runs.items():
+        model = Seq2Seq(c, "cuda")
+        model.load_state_dict(weights)
+        models[label] = model.eval()
+        captured = []
+
+        def record(m, chunks, cc, captured=captured):
+            captured.append(chunks)
+            return decode_chunks_batched(m, chunks, cc)
+
+        frames = process_audio_features(feats, model, c, decode_batched=record)
+        chunks = captured[0]
+        wants[label] = (chunks, decode_chunks_batched(model, chunks, c),
+                        frames)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    gots = {}
+    for label, c in runs.items():
+        dec = MeshDecoder(models[label], c, mesh)
+        gots[label] = (dec(models[label], wants[label][0], c),
+                       process_audio_features(feats, models[label], c,
+                                              decode_batched=dec))
+    launches = dict(kernels.LAUNCHES)
+    out = {"launches": launches, "sums": {}}
+    for label, (chunks, ref_chunks, ref_frames) in wants.items():
+        got_chunks, got_frames = gots[label]
+        tol = 1e-4 if "fp32" in label else 0.05
+        for what, got, ref in (("chunks", got_chunks, ref_chunks),
+                               ("frames", got_frames, ref_frames)):
+            e, scale = float(np.abs(got - ref).max()), float(
+                np.abs(ref).max())
+            check(got.shape == ref.shape and bool(np.isfinite(got).all())
+                  and e <= tol * scale,
+                  f"(p3) MeshDecoder at dp 2, {label}, {what} "
+                  f"{tuple(got.shape)} (from {chunks.shape[0]} chunks): "
+                  f"within {tol:g} of max|out| of one rank's decode (max abs "
+                  f"diff {e}, max|out| {scale})")
+        out["sums"][label] = [float(got_chunks.sum()), float(got_frames.sum())]
+    check(all(w[0].shape[0] == serving_shape(cfg)[0] for w in wants.values()),
+          f"(p3) the 30 s request decodes as {serving_shape(cfg)[0]} chunks")
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_train_model(torch, np, tmp: str, rank: int) -> dict:
+    """(p4): train_model at dp 2 on the copy of dataset/data in tmp,
+    validating on dataset/test_set: one epoch, a checkpoint, a resume for
+    the second; rank 0's model.pth serves test_set/audio.wav."""
+    import os
+
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.training.loop import train_model
+    from neurosync_trainer_lite_tpu_torch.utils.weights import load_model
+
+    test_set = REPO / "dataset" / "test_set"
+    out = os.path.join(tmp, "p4")
+    cfg = Config(root_dir=os.path.join(tmp, "data"), n_epochs=1,
+                 audio_path=str(test_set / "audio.wav"),
+                 ground_truth_path=str(test_set / "testset.csv"),
+                 model_path=os.path.join(out, "model.pth"),
+                 checkpoint_path=os.path.join(out, "checkpoints",
+                                              "checkpoint"),
+                 plots_dir=os.path.join(out, "plots"))
+    history = {}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _, steps = train_model(cfg, device="cuda", history_out=history)
+    _, total = train_model(cfg.replace(mode="resume", n_epochs=2),
+                           device="cuda", history_out=history)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = history["train_losses"]
+    check(total == 2 * steps == len(losses) > 0
+          and all(math.isfinite(x) for x in losses + history["val_losses"]
+                  + history["grad_norms"]),
+          f"(p4) rank {rank}: {steps} steps in the first epoch, the resume "
+          f"continues to {total}, every loss and grad norm finite")
+    if rank == 0:
+        model = load_model(cfg.model_path, Config(), device="cuda")
+        frames = generate_facial_data_from_bytes(
+            (test_set / "audio.wav").read_bytes(), model, Config())
+        check(isinstance(frames, np.ndarray) and frames.ndim == 2
+              and frames.shape[1] == 61 and bool(np.isfinite(frames).all()),
+              f"(p4) rank 0's model.pth serves test_set/audio.wav: "
+              f"{frames.shape} finite frames")
+        del model
+    return {"launches": launches, "steps": steps, "total": total,
+            "peak": peak, **{k: history[k] for k in ("train_losses", "val_losses",
+                                       "grad_norms", "epoch_seconds",
+                                       "epoch_samples")}}
+
+
+def dp_first_step_gaps(got: dict, ref: dict) -> tuple[float, float]:
+    """The first step's relative loss and grad norm gaps of a dp run
+    against one process."""
+    return (abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+            abs(got["norms"][0] - ref["norms"][0]) / ref["norms"][0])
+
+
+def dp_planted(torch, np, base, weights, src, trg, mesh) -> dict:
+    """One step of (p2)'s dropout-0.3 runs with each fault planted that the
+    step-1 gate must catch: a rank's rows as one contiguous block under
+    accumulation (its micro-batch i then is not its share of the global
+    micro-batch i, so its masks are other rows'), and masks drawn over the
+    rank's own rows instead of its block of the global draw."""
+    from neurosync_trainer_lite_tpu_torch.ops import attention as attn
+    from neurosync_trainer_lite_tpu_torch.training import step as step_mod
+
+    accum = base.replace(grad_accum_steps=2)
+    m = base.batch_size // mesh.dp
+    contiguous = np.arange(mesh.data_index * m, (mesh.data_index + 1) * m)
+    out = {"contiguous rows, accum 2": dp_run(
+        torch, accum, weights, src, trg, mesh, steps=1, rows=contiguous)}
+    plain_rows = step_mod.dropout_rows
+    step_mod.dropout_rows = lambda n, i: attn.dropout_rows(1, 0)
+    try:
+        out["masks over the local rows"] = dp_run(
+            torch, base, weights, src, trg, mesh, steps=1)
+    finally:
+        step_mod.dropout_rows = plain_rows
+    return out
+
+
+def dp_p2(torch, np, port: int, rank: int, tmp: str) -> dict:
+    """(p2)–(p4) on rank `rank` of two, over gloo, both on the one card."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.parallel import (
+        distributed, make_mesh)
+
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 2, rank,
+                                       backend="gloo",
+                                       timeout_s=DP_GROUP_TIMEOUT)
+    try:
+        base = Config()
+        mesh = make_mesh(base)
+        weights, src, trg = dp_weights(torch, base)
+        kernels.reset_launches()
+        runs = {label: dp_run(torch, base.replace(**kw), weights, src, trg,
+                              mesh)
+                for label, kw in DP_CONFIGS.items()}
+        launches = dict(kernels.LAUNCHES)
+        planted = dp_planted(torch, np, base, weights, src, trg, mesh)
+        n = sum(t.numel() for t in weights.values())
+        flat = torch.ones(n + 1, device="cuda")
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            distributed.all_reduce_mean_(flat, mesh)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del flat, weights, src, trg
+        torch.cuda.empty_cache()
+        decode = dp_decode(torch, np, mesh)
+        trained = dp_train_model(torch, np, tmp, rank)
+    finally:
+        distributed.destroy()
+    return {"runs": runs, "launches": launches, "planted": planted,
+            "allreduce_ms": statistics.median(times[1:]),
+            "allreduce_bytes": 4 * (n + 1), "decode": decode,
+            "train_model": trained}
+
+
+def dp_worker(torch, np, part: str, rank: int, port: int, tmp: str) -> None:
+    """One rank of the parallel phase: its results as JSON in tmp."""
+    import os
+
+    result = (dp_p1(torch, port) if part == "p1"
+              else dp_p2(torch, np, port, rank, tmp))
+    with open(os.path.join(tmp, f"{part}_r{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def dp_spawn(part: str, world: int, tmp: str) -> list[dict]:
+    """Run `world` ranks of the parallel phase's `part` as subprocesses
+    with a deadline; relay their output; fail unless every rank exits 0.
+    Returns each rank's results."""
+    import os
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--parallel-worker",
+         part, str(r), str(port), tmp], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    deadline = time.monotonic() + DP_RUN_TIMEOUT
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+            except subprocess.TimeoutExpired:
+                logs.append(f"(no exit within {DP_RUN_TIMEOUT} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, log in enumerate(logs):
+        for line in log.splitlines():
+            print(f"[{part} rank {r}] {line}", flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          f"({part}) {world} rank(s) exit 0: "
+          f"{[p.returncode for p in procs]}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{part}_r{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def parallel(torch, np) -> dict:
+    """Phase 12: data parallelism, every rank a subprocess with a deadline,
+    the kernels built by this process first. (p1) one rank over NCCL; (p2)
+    two ranks on the one card over gloo, which reduces CUDA tensors where
+    NCCL refuses two ranks on one card; (p3) MeshDecoder and (p4)
+    train_model on the same two ranks. Returns the main path runs' launch
+    counts by run."""
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    print("parallel: (p2)-(p4) run two ranks on the one card, so they "
+          "measure correctness and the reduction's cost, not scaling",
+          flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        shutil.copytree(REPO / "dataset" / "data", os.path.join(tmp, "data"),
+                        ignore=shutil.ignore_patterns("audio_features.csv"))
+        (p1,) = dp_spawn("p1", 1, tmp)
+        p2 = dp_spawn("p2", 2, tmp)
+    # every first-step gap, before the checks stop at one
+    for name, got, label in (
+            *((label, p2[0]["runs"][label], label) for label in DP_CONFIGS),
+            *((f"planted fault, {fault}", p2[0]["planted"][fault], label)
+              for fault, label in DP_PLANTED.items())):
+        gaps = dp_first_step_gaps(got, p1["refs"][label])
+        print(f"(p2) {name}: the first step against one process: loss "
+              f"{gaps[0]:.3e}, grad norm {gaps[1]:.3e} relative (losses "
+              f"{got['losses'][0]!r} vs {p1['refs'][label]['losses'][0]!r}, "
+              f"grad norms {got['norms'][0]!r} vs "
+              f"{p1['refs'][label]['norms'][0]!r})", flush=True)
+    for label in DP_CONFIGS:
+        a, b = (r["runs"][label] for r in p2)
+        check(a["losses"] == b["losses"] and a["norms"] == b["norms"]
+              and a["checksum"] == b["checksum"],
+              f"(p2) {label}: the two ranks' losses, grad norms and "
+              f"parameter checksums are bitwise equal")
+        ref = p1["refs"][label]
+        loss_err = max(abs(x - y) / abs(y)
+                       for x, y in zip(a["losses"], ref["losses"]))
+        norm_err = max(abs(x - y) / abs(y)
+                       for x, y in zip(a["norms"], ref["norms"]))
+        check(loss_err <= 1e-3 and norm_err <= 1e-2,
+              f"(p2) {label}: dp 2 against one process on the whole batch, "
+              f"{DP_STEPS} steps: loss within {loss_err:.3e} relative "
+              f"(limit 1e-3), grad norm within {norm_err:.3e} (1e-2); losses "
+              f"{a['losses']} vs {ref['losses']}")
+        gaps = dp_first_step_gaps(a, ref)
+        check(all(g <= lim for g, lim in zip(gaps, DP_FIRST_STEP_LIMITS)),
+              f"(p2) {label}: the first step against one process: loss "
+              f"within {gaps[0]:.3e} relative, grad norm within "
+              f"{gaps[1]:.3e} (limits {DP_FIRST_STEP_LIMITS})")
+        print(f"(p2) {label}: {a['rows']} rows a rank, step median "
+              f"{a['step_ms']:.3f} / {b['step_ms']:.3f} ms (ranks 0 / 1, "
+              f"sharing the card; one process on the whole batch "
+              f"{ref['step_ms']:.3f}), peak device memory {a['peak']} / "
+              f"{b['peak']} bytes (one process {ref['peak']})", flush=True)
+    for fault, label in DP_PLANTED.items():
+        gaps = dp_first_step_gaps(p2[0]["planted"][fault], p1["refs"][label])
+        check(any(g > lim for g, lim in zip(gaps, DP_FIRST_STEP_LIMITS)),
+              f"(p2) planted fault, {fault}: the first-step gate catches it "
+              f"(loss {gaps[0]:.3e} relative, grad norm {gaps[1]:.3e}; "
+              f"limits {DP_FIRST_STEP_LIMITS})")
+    print(f"(p2) the gradient all-reduce over gloo through the host: "
+          f"{p2[0]['allreduce_ms']:.3f} ms (rank 1: "
+          f"{p2[1]['allreduce_ms']:.3f}) for {p2[0]['allreduce_bytes']} bytes "
+          f"of fp32, once a step", flush=True)
+    check(p2[0]["decode"]["sums"] == p2[1]["decode"]["sums"],
+          "(p3) both ranks hold the same decoded frames")
+    t0, t1 = (r["train_model"] for r in p2)
+    check(all(t0[k] == t1[k] for k in ("train_losses", "val_losses",
+                                        "grad_norms", "steps", "total")),
+          f"(p4) the two ranks' histories are equal: {len(t0['train_losses'])}"
+          f" train losses, {len(t0['val_losses'])} validation losses, "
+          f"{len(t0['grad_norms'])} grad norms")
+    for i, (sec, n) in enumerate(zip(t0["epoch_seconds"],
+                                     t0["epoch_samples"])):
+        print(f"(p4) epoch {i + 1} at dp 2: {sec:.3f} s, {n} samples, "
+              f"{n / sec:.1f} samples/s as the loop counts them", flush=True)
+    print(f"(p4) peak device memory of the two train_model calls: "
+          f"{t0['peak']} / {t1['peak']} bytes (ranks 0 / 1)", flush=True)
+
+    def summed(counts):
+        return dict(sum((Counter(c) for c in counts), Counter()))
+
+    paths = {"parallel (p1)": p1["launches"],
+             "parallel (p2)": summed(r["launches"] for r in p2),
+             "parallel (p3)": summed(r["decode"]["launches"] for r in p2),
+             "parallel (p4)": summed(r["train_model"]["launches"] for r in p2)}
+    check(p1["launches"] == {"rope_rotate": 100 * DP_STEPS},
+          f"(p1) kernel launches of {DP_STEPS} steps of (a): "
+          f"{p1['launches']} == {{'rope_rotate': {100 * DP_STEPS}}}")
+    for path in ("parallel (p2)", "parallel (p3)"):   # 'pallas' runs K4
+        check(paths[path].get("fused_rope_attention", 0) > 0,
+              f"{path} launched the K4 forward")
+    check(paths["parallel (p2)"].get("fused_rope_attention_bwd", 0) > 0,
+          "parallel (p2) launched the K4 backward")
+    for path, counts in paths.items():
+        check(counts.get("rope_rotate", 0) > 0,
+              f"{path} launched K1: {counts}")
+    return paths
+
+
 def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
     """The card's busy share and top kernels of one call (profiler on).
     Returns the call's device ms by kernel name."""
@@ -2054,14 +2544,23 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("serve-s2", "live"),
-        help="build the kernels and run phase 7b (serve-s2) or 7c (live) "
-             "alone, printing no result line: to time the (s2) request or "
-             "the live run of two trees side by side")
+        "--only", choices=("serve-s2", "live", "parallel"),
+        help="build the kernels and run phase 7b (serve-s2), 7c (live) or "
+             "12 (parallel) alone, printing no result line: to time the "
+             "(s2) request or the live run of two trees side by side")
+    parser.add_argument("--parallel-worker", nargs=4,
+                        metavar=("PART", "RANK", "PORT", "DIR"),
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.parallel_worker:
+        part, rank, port, tmp = args.parallel_worker
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dp_worker(torch, np, part, int(rank), int(port), tmp)
+        return 0
     from neurosync_trainer_lite_tpu_torch.ops import kernels
 
     card = card_line()
@@ -2080,7 +2579,8 @@ def main() -> int:
         print_ptxas_summary(log)
     sass_counts(kernels)
     if args.only:
-        {"serve-s2": serve_long, "live": live}[args.only](torch, np)
+        {"serve-s2": serve_long, "live": live,
+         "parallel": parallel}[args.only](torch, np)
         print(card, flush=True)
         return 0
 
@@ -2128,6 +2628,7 @@ def main() -> int:
     train_paths, step_a = train(torch)
     paths.update(train_paths)
     train_entry_point(torch, np, step_a)
+    paths.update(parallel(torch, np))
     for counts in paths.values():   # the K3 backward's two kernels
         check(counts.get("flash_attention_bwd_dq", 0)
               == counts.get("flash_attention_bwd_dkdv", 0),

@@ -6,8 +6,11 @@ the geometry (sr, input_dim, output_dim, frame_size, overlap, hidden_dim,
 n_layers, num_heads), use_amp and attention_impl. The training step
 (training/step.py) also reads dropout, learning_rate, weight_decay, n_epochs,
 warmup_epochs, grad_clip, delta, w1-w4, zero_penalty_weight, loss_variant,
-smoothness_annealing and grad_accum_steps, and refuses tp != 1 and dp > 1,
-which are not ported yet. The model reads remat, remat_scope, remat_layers
+smoothness_annealing and grad_accum_steps; dp is the size of the 'data'
+axis of the rank mesh (parallel/mesh.py: -1 takes every rank), and
+batch_size must split into grad_accum_steps · dp equal shares
+(check_batch_split). tp != 1 raises: tensor parallelism is not ported
+yet. The model reads remat, remat_scope, remat_layers
 and remat_policy (per-layer torch.utils.checkpoint, models/seq2seq.py);
 unroll_residents is semantics only there. The other knobs (the data
 loop's, prng_impl, auto_remat, async_checkpoint, ...) are kept for that
@@ -127,6 +130,14 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def check_batch_split(batch_size: int, accum: int, dp: int) -> None:
+    """The JAX config's constraint: a batch splits into `accum` micro-batches
+    of `dp` equal rank shares each."""
+    if batch_size % (accum * dp):
+        raise ValueError(f"batch_size {batch_size} must be divisible by "
+                         f"grad_accum_steps * dp = {accum} * {dp}")
 
 
 def tiny_config(**kw) -> Config:

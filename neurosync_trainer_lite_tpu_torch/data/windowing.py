@@ -13,6 +13,9 @@ The split is a seeded permutation of window indices (90/10 at val_split
 0.1), the batch order a seeded permutation per epoch, as in the JAX
 package, so both packages see the same windows in the same order.
 
+Under data parallelism every rank walks the same seeded batch order and
+gathers only its own rows of each batch (``host_batches(mesh=...)``).
+
 Batches for the card: ``host_batches`` gathers each batch into pinned host
 memory, and ``prefetch`` runs that gather in a background thread. The copy
 to the card belongs to the consumer (``to_device``: non_blocking on the
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.parallel.distributed import rank_rows
 
 
 class WindowedDataset:
@@ -181,13 +185,21 @@ def _iterate(base: WindowedDataset, idxs: np.ndarray, batch_size: int, *,
         yield base.gather(chunk)
 
 
-def host_batches(view, batch_size: int, *, pin_memory: bool, **order
+def host_batches(view, batch_size: int, *, pin_memory: bool, mesh=None,
+                 accum: int = 1, **order
                  ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
     """view.batches(batch_size, **order) as fp32 torch tensors, each batch
-    gathered straight into newly allocated (pinned, if asked) host memory."""
+    gathered straight into newly allocated (pinned, if asked) host memory.
+
+    Under a mesh each batch is this rank's rows of the global one
+    (parallel/distributed.py:rank_rows, laid out for `accum` micro-batches),
+    and only those windows are gathered. The batch order stays a function
+    of the seed, the same on every rank."""
     base = getattr(view, "base", view)
     audio_dim, facial_dim = base.dims
     for chunk in view.index_batches(batch_size, **order):
+        if mesh is not None:
+            chunk = rank_rows(chunk, mesh, accum)
         src = torch.empty((len(chunk), base.window, audio_dim),
                           pin_memory=pin_memory)
         trg = torch.empty((len(chunk), base.window, facial_dim),

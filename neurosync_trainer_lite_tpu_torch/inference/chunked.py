@@ -10,6 +10,11 @@ All chunks go to the device as one batch and decode in one forward, at
 the true chunk count: the JAX package pads the batch to a power of two to
 bound XLA recompiles, which eager PyTorch does not have. The serial blend
 runs on the host in numpy.
+
+MeshDecoder decodes the chunks over the rank mesh's 'data' axis
+(parallel/mesh.py): SPMD, every rank calls it with the same chunks, as
+every JAX process must in a multi-process job; each decodes its rows and
+an all-gather hands every rank the whole batch.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.data.processing import BLENDSHAPE_SCALE
+from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+)
 from neurosync_trainer_lite_tpu_torch.utils.device import module_device
 
 
@@ -95,9 +103,49 @@ def decode_chunks_batched(model, chunks: np.ndarray, cfg: Config) -> np.ndarray:
     return out.cpu().numpy().astype(np.float64)
 
 
+class MeshDecoder:
+    """Serving decode over the rank mesh's 'data' axis, with
+    decode_chunks_batched's signature so it drops into
+    process_audio_features:
+
+        mesh = make_mesh(cfg)
+        dec = MeshDecoder(model, cfg, mesh)
+        frames = process_audio_features(feats, model, cfg, decode_batched=dec)
+
+    SPMD: every rank of the mesh calls it with the same chunks. The batch
+    is padded with zero chunks to a multiple of dp (no power-of-two
+    bucket: the port decodes at the true chunk count), rank r decodes rows
+    [r·m, (r+1)·m), and an all-gather returns the whole [:n] to every rank.
+    The model argument of __call__ is ignored (the constructor's is used),
+    as the JAX MeshDecoder ignores its params argument."""
+
+    def __init__(self, model, cfg: Config, mesh):
+        self.model, self.cfg, self.mesh = model, cfg, mesh
+
+    @torch.inference_mode()
+    def __call__(self, params_or_model, chunks: np.ndarray,
+                 cfg: Config | None = None) -> np.ndarray:
+        n, dp = chunks.shape[0], self.mesh.dp
+        m = -(-n // dp)
+        if m * dp != n:
+            chunks = np.concatenate(
+                [chunks, np.zeros((m * dp - n, *chunks.shape[1:]),
+                                  chunks.dtype)])
+        r = self.mesh.data_index
+        x = torch.from_numpy(np.ascontiguousarray(chunks[r * m:(r + 1) * m],
+                                                  np.float32))
+        out = all_gather_rows(self.model(x.to(module_device(self.model))),
+                              self.mesh)
+        return out[:n].cpu().numpy().astype(np.float64)
+
+
 def process_audio_features(audio_features: np.ndarray, model,
-                           cfg: Config) -> np.ndarray:
-    """features [T, input_dim] → blendshapes [T, output_dim]."""
+                           cfg: Config, *,
+                           decode_batched=decode_chunks_batched
+                           ) -> np.ndarray:
+    """features [T, input_dim] → blendshapes [T, output_dim];
+    decode_batched(model, chunks, cfg) decodes the chunk batch (a
+    MeshDecoder decodes it over the rank mesh)."""
     frame_length = cfg.frame_size
     overlap = cfg.overlap
     num_features = audio_features.shape[1]
@@ -115,7 +163,7 @@ def process_audio_features(audio_features: np.ndarray, model,
             pad_audio_chunk(audio_features[num_frames - remaining: num_frames],
                             frame_length, num_features))
 
-    decoded = decode_chunks_batched(
+    decoded = decode_batched(
         model, np.asarray(chunk_list, dtype=np.float32), cfg)
 
     return blend_decoded_chunks(decoded, lengths, remaining, overlap,

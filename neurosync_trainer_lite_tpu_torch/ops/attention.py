@@ -30,9 +30,18 @@ per-site integer seed (Philox on the card), and its backward redraws the
 mask from the saved seed instead of keeping it. Per-site seeds come from the
 training step's torch.Generator through split_seed, in the tree shape of the
 JAX keys (seq2seq → layers → sites → attention and residual).
+
+Data parallelism: a JAX mask is a function of the key and the global shape,
+whatever the sharding. Under dropout_rows(n, i) a rank holding one of n
+equal row blocks of a micro-batch draws the global micro-batch's bits
+(n times its own rows, from the same per-site seed) and keeps block i, so
+its masks are the rows of the one-process masks (the training step sets
+it; parallel/mesh.py:batch_rows lays the rows out to match).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -115,14 +124,40 @@ def dropout_mask_q(rate: float) -> int:
     return int(round(rate * 256))
 
 
+#: (n, i): every mask is row block i of a draw over n times its rows. A
+#: process-wide setting, not a thread-local: the backward and the remat
+#: recompute run on autograd's device threads, inside the step that set it.
+_ROW_BLOCK = (1, 0)
+
+
+@contextlib.contextmanager
+def dropout_rows(n_blocks: int, index: int):
+    """Inside the block, every dropout draw covers n_blocks times the rows
+    (the leading dimension) it is asked for and keeps the index-th block of
+    them: a rank's rows of the global micro-batch's masks."""
+    global _ROW_BLOCK
+    if not 0 <= index < n_blocks:
+        raise ValueError(f"row block {index} of {n_blocks}")
+    saved, _ROW_BLOCK = _ROW_BLOCK, (n_blocks, index)
+    try:
+        yield
+    finally:
+        _ROW_BLOCK = saved
+
+
 def dropout_keep(seed: int, shape, q: int, device) -> torch.Tensor:
     """The shared keep-mask draw: uint8 bits from a generator seeded with
-    `seed`, keep iff bits >= q. A pure function of (seed, shape, device), so
-    every caller redrawing with the same seed gets the same mask."""
+    `seed`, keep iff bits >= q. A pure function of (seed, shape, device)
+    and the row block (dropout_rows), so every caller redrawing with the
+    same seed gets the same mask."""
+    n, i = _ROW_BLOCK
+    rows = shape[0]
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    bits = torch.empty(shape, dtype=torch.uint8, device=device)
-    return bits.random_(generator=g) >= q
+    bits = torch.empty((n * rows, *shape[1:]), dtype=torch.uint8,
+                       device=device)
+    bits.random_(generator=g)
+    return bits[i * rows: (i + 1) * rows] >= q
 
 
 def _drop(x: torch.Tensor, keep: torch.Tensor, q: int) -> torch.Tensor:

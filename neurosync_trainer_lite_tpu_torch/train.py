@@ -7,9 +7,18 @@ The equivalent of the reference's ``python train.py`` (reference:
 train.py:61-104): every Config field is a flag; --tiny starts from the tiny
 geometry; --init_from_pth warm-starts from a reference-format model.pth;
 --profile DIR writes a torch.profiler chrome trace of one epoch. Runs on the
-CUDA card unless --device cpu is given. The multi-process flags
-(--distributed, --coordinator, --num_processes, --process_id) raise until
-data parallelism is ported.
+CUDA card unless --device cpu is given.
+
+Data parallelism, one process a card (parallel/distributed.py):
+
+    torchrun --nproc_per_node 4 -m neurosync_trainer_lite_tpu_torch.train --distributed
+    python -m neurosync_trainer_lite_tpu_torch.train --coordinator HOST:PORT \
+        --num_processes N --process_id I      # once per rank
+
+--distributed reads torchrun's environment (env://), where the JAX package
+auto-detects a TPU pod; --coordinator is the explicit mode. --device cpu
+runs CPU ranks over gloo. Rank flags without a coordinator, or beside
+--distributed, refuse to run rather than train single-process.
 """
 
 from __future__ import annotations
@@ -41,29 +50,73 @@ def parse_config(argv=None) -> tuple[Config, argparse.Namespace]:
                         help="warm-start from a reference-format model.pth "
                              "(weights only; the optimizer starts fresh)")
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (not ported yet)")
+                        help="multi-process: auto-detection from torchrun's "
+                             "environment (env://)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        metavar="HOST:PORT", help="not ported yet")
+                        metavar="HOST:PORT",
+                        help="multi-process: rank 0's address (explicit "
+                             "mode)")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="not ported yet")
+                        help="multi-process: total process count")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="not ported yet")
+                        help="multi-process: this process's rank")
     args = parser.parse_args(argv)
     return config_from_args(args), args
 
 
+def _initialize(args) -> bool:
+    """Join the process group the flags ask for (True), or refuse flags
+    that would otherwise train single-process."""
+    from neurosync_trainer_lite_tpu_torch.parallel import distributed
+
+    rank_flags = (args.num_processes is not None
+                  or args.process_id is not None)
+    if args.coordinator is not None:
+        return distributed.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            device=args.device)
+    if args.distributed:
+        if rank_flags:
+            raise SystemExit(
+                "--distributed uses auto-detection (torchrun's environment, "
+                "env://) and ignores explicit topology; pass --coordinator "
+                "HOST:PORT together with --num_processes/--process_id for "
+                "explicit mode")
+        return distributed.initialize_distributed(init_method="env://",
+                                                  device=args.device)
+    if rank_flags:
+        raise SystemExit(
+            "--num_processes/--process_id need --coordinator HOST:PORT (or "
+            "use --distributed for auto-detection from torchrun's "
+            "environment); refusing to run silently single-process")
+    return False
+
+
 def main(argv=None) -> None:
     cfg, args = parse_config(argv)
-    if (args.distributed or args.coordinator is not None
-            or args.num_processes is not None or args.process_id is not None):
-        raise NotImplementedError("multi-process training is not ported yet")
+    from neurosync_trainer_lite_tpu_torch.parallel import distributed
 
+    joined = _initialize(args)
+    try:
+        _train(cfg, args, joined)
+    finally:
+        if joined:
+            distributed.destroy()
+
+
+def _train(cfg, args, joined: bool) -> None:
     import torch
 
+    from neurosync_trainer_lite_tpu_torch.parallel import distributed
     from neurosync_trainer_lite_tpu_torch.training.loop import train_model
     from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    if joined:
+        device = distributed.rank_device(args.device)
+        print(f"distributed: process {distributed.rank()}/"
+              f"{distributed.world_size()}, device {device}", flush=True)
+    else:
+        device = resolve_device(args.device)
     init_sd = None
     if args.init_from_pth:
         init_sd = torch.load(args.init_from_pth, map_location="cpu",

@@ -20,8 +20,20 @@ live state in the background. Here ``opt.step()`` updates parameters and
 moments in place, so an async save first takes a host snapshot (device →
 host copies, synchronised) and only then hands the write to a thread;
 ``wait_for_pending_saves`` joins it, then writes the deferred meta.json,
-and raises if a write failed. Multi-process barriers wait for data
-parallelism, which is not ported.
+and raises if a write failed.
+
+Multi-process jobs (parallel/distributed.py). Every rank holds the whole
+state, so rank 0 writes it, and saving is collective all the same: every
+rank calls save_checkpoint and passes the barriers around the rotation
+(ckpt-pre-rotate, ckpt-post-rotate) and after the write or, when async,
+its start (ckpt-saved). Failures are fenced across the ranks: the last two
+barriers are all-reduces of a failure flag (distributed.fenced), and
+wait_for_pending_saves does the same for the async writes, so a failed
+rotation, write or export on rank 0 raises on every rank, where a lone
+raise would strand the others at the next collective. The fences run on
+the caller's thread of every rank, never on a writer thread. On resume every
+rank reads the checkpoint (a shared filesystem, as the JAX package's Orbax
+restore assumes), then takes rank 0's state (training/step.py).
 """
 
 from __future__ import annotations
@@ -35,6 +47,8 @@ from datetime import datetime
 import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.parallel import distributed
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import Mesh
 from neurosync_trainer_lite_tpu_torch.training.step import (
     TrainState,
     init_train_state,
@@ -105,18 +119,28 @@ def wait_for_pending_saves() -> None:
     """Block until every async checkpoint and model.pth write has landed,
     then write the deferred meta.json files. If a write failed, no deferred
     meta is written (a meta-less checkpoint stays recognisably incomplete,
-    and resume falls back to the newest complete backup) and this raises."""
+    and resume falls back to the newest complete backup) and this raises.
+    Collective in a multi-process job: a failure on any rank raises on
+    every rank."""
     for t in _pending.threads:
         t.join()
     _pending.threads.clear()
     metas, _pending.metas = _pending.metas, []
-    if _pending.errors:
-        err = _pending.errors[0]
-        _pending.errors.clear()
-        raise RuntimeError("async checkpoint save or model.pth export "
-                           "failed") from err
-    for path, meta in metas:
-        _write_meta(path, meta)
+    err = _pending.errors[0] if _pending.errors else None
+    _pending.errors.clear()
+    if err is None:
+        try:
+            for path, meta in metas:
+                _write_meta(path, meta)
+        except OSError as e:   # still reaches the fence below
+            err = e
+    failed = err is not None
+    if distributed.is_multiprocess():
+        failed = distributed.any_failed(failed)
+    if failed:
+        raise RuntimeError("async checkpoint save or model.pth export failed"
+                           + ("" if err is not None else
+                              " on another process")) from err
 
 
 def _backups(parent: str) -> list[str]:
@@ -152,22 +176,32 @@ def save_checkpoint(state: TrainState, epoch: int, batch_step: int,
     """Save the model and optimizer state with its meta.json; returns the
     state file's path. async_save=True returns once the host snapshot is
     taken; the disk write overlaps the caller's work and meta.json follows
-    in wait_for_pending_saves."""
+    in wait_for_pending_saves. Collective in a multi-process job: every
+    rank calls it, rank 0 writes."""
     path = os.path.abspath(checkpoint_path or cfg.checkpoint_path)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
+    primary = distributed.rank() == 0
     wait_for_pending_saves()  # the previous save must land before rotating
-    _rotate_backups(path)
-    os.makedirs(path)
-    meta = {"epoch": epoch, "batch_step": batch_step, "config": cfg.to_dict()}
-    snapshot = {"model": _to_host(state.model.state_dict()),
-                "optimizer": _to_host(state.optimizer.state_dict())}
+    distributed.barrier("ckpt-pre-rotate")   # ...on every rank
+    with distributed.fenced("ckpt-post-rotate"):
+        if primary:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            _rotate_backups(path)
+            os.makedirs(path)
     state_file = os.path.join(path, _STATE_FILE)
-    if async_save:
-        _in_background(_write_atomic, snapshot, state_file)
-        _pending.metas.append((path, meta))
-    else:
-        _write_atomic(snapshot, state_file)
-        _write_meta(path, meta)
+    # async: the snapshot and the thread's start; the write is fenced in
+    # wait_for_pending_saves
+    with distributed.fenced("ckpt-saved"):
+        if primary:
+            meta = {"epoch": epoch, "batch_step": batch_step,
+                    "config": cfg.to_dict()}
+            snapshot = {"model": _to_host(state.model.state_dict()),
+                        "optimizer": _to_host(state.optimizer.state_dict())}
+            if async_save:
+                _in_background(_write_atomic, snapshot, state_file)
+                _pending.metas.append((path, meta))
+            else:
+                _write_atomic(snapshot, state_file)
+                _write_meta(path, meta)
     return state_file
 
 
@@ -209,14 +243,16 @@ def _load_state(path: str) -> tuple[dict, dict]:
 
 
 def load_checkpoint(checkpoint_path: str, cfg: Config, steps_per_epoch: int,
-                    device=None) -> tuple[int, int, TrainState]:
+                    device=None, mesh: Mesh | None = None
+                    ) -> tuple[int, int, TrainState]:
     """Returns (epoch, batch_step, TrainState) on `device` (default: the
     card). The optimizer's moments move to their parameters' device; its
-    step counts stay on the host, as a fresh Adam keeps them."""
+    step counts stay on the host, as a fresh Adam keeps them. Under a mesh
+    every rank reads the checkpoint and then takes rank 0's state."""
     meta, blob = _load_state(checkpoint_path)
     state = init_train_state(cfg, steps_per_epoch, device=device,
-                             state_dict=blob["model"])
-    state.optimizer.load_state_dict(blob["optimizer"])
+                             state_dict=blob["model"],
+                             optimizer_state=blob["optimizer"], mesh=mesh)
     return meta["epoch"], meta["batch_step"], state
 
 

@@ -18,8 +18,16 @@ with one sync at its end; a validation print syncs every
 (cfg.seed + 1, batch_step), as JAX folds batch_step into its key, so a
 resumed run draws the masks the uninterrupted run drew.
 
-Data, tensor and multi-process parallelism are not ported: a mesh, dp > 1
-and tp != 1 raise NotImplementedError. The run uses one card.
+Data parallelism (parallel/): with a process group up, or dp > 1, the run
+builds the rank mesh. Every rank walks the same seeded batch order and
+gathers only its rows of each batch (for training laid out for the
+micro-batches, data/windowing.py:host_batches), the step all-reduces, and
+the history (train and validation losses, grad norms) is the same on every
+rank. Checkpoints are collective (training/checkpoint.py); plots, CSVs,
+the fixed-wav validation and model.pth are written by rank 0 alone, each
+behind a fence (parallel/distributed.py:fenced) that raises its failure on
+every rank. The epoch's samples/s counts the global batch. Tensor parallelism is not
+ported: tp != 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from neurosync_trainer_lite_tpu_torch.data.windowing import (
     prepare_datasets,
     to_device,
 )
+from neurosync_trainer_lite_tpu_torch.parallel import distributed
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import resolve_mesh
 from neurosync_trainer_lite_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -80,11 +90,11 @@ def _epoch_artifacts(epoch, train_steps, train_losses, val_steps, val_losses,
 
 def train_one_epoch(epoch, state: TrainState, train_view, val_view,
                     cfg: Config, train_step, eval_step, *, batch_step=0,
-                    device=None, plots_dir=None, verbose=True,
+                    device=None, mesh=None, plots_dir=None, verbose=True,
                     history_out=None):
     """Returns (state, batch_step, mean_epoch_loss). history_out: optional
     dict extended with 'train_losses', 'val_losses' and 'grad_norms' lists
-    and this epoch's 'epoch_seconds' and 'epoch_samples'."""
+    and this epoch's 'epoch_seconds' and 'epoch_samples' (global rows)."""
     device = resolve_device(device)
     pin = device.type == "cuda"
     train_losses, train_steps = [], []
@@ -94,7 +104,7 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
 
     def val_stream():
         return host_batches(val_view, cfg.batch_size, pin_memory=pin,
-                            wrap=True)
+                            mesh=mesh, wrap=True)
 
     val_iter = val_stream() if val_view is not None and len(val_view) else None
 
@@ -109,8 +119,9 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
     anneal = cfg.loss_variant == "smoothness" and cfg.smoothness_annealing
     n_batches = 0
     batch_iter = prefetch(host_batches(
-        train_view, cfg.batch_size, pin_memory=pin, shuffle=True,
-        seed=cfg.seed + epoch, drop_last=True))
+        train_view, cfg.batch_size, pin_memory=pin, mesh=mesh,
+        accum=cfg.grad_accum_steps, shuffle=True, seed=cfg.seed + epoch,
+        drop_last=True))
     for batch_idx, host in enumerate(batch_iter):
         src, trg = to_device(host, device)
         state, loss, grad_norm = train_step(
@@ -157,9 +168,10 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
               f"({n_batches * cfg.batch_size / max(epoch_time, 1e-9):.1f} "
               f"samples/s)")
 
-    if plots_dir is not None:
-        _epoch_artifacts(epoch, train_steps, train_losses, val_steps,
-                         val_losses, gradient_norms, plots_dir)
+    with distributed.fenced("epoch-plots"):   # rank 0 alone plots
+        if plots_dir is not None:
+            _epoch_artifacts(epoch, train_steps, train_losses, val_steps,
+                             val_losses, gradient_norms, plots_dir)
 
     if history_out is not None:
         history_out.setdefault("train_losses", []).extend(train_losses)
@@ -276,16 +288,24 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
     """End-to-end training (reference: train.py:12-58 + __main__:61-104).
 
     device: where to train (default: the card; the CPU only when asked).
+    mesh: the rank mesh (default: the config's when dp > 1 or a process
+    group is up, parallel/mesh.py:resolve_mesh); every rank calls this.
     init_state_dict: a reference-format state dict to start from instead of
     the seeded init (a model.pth, or JAX params through
     utils.weights.params_from_jax); ignored on resume.
     split_indices: (train_idx, val_idx) window-index arrays in place of the
     seeded split. Returns (state, batch_step).
     """
+    if cfg.tp != 1:
+        raise NotImplementedError("tensor parallelism is not ported yet")
+    mesh = resolve_mesh(cfg, mesh)
     device = resolve_device(device)
-    if mesh is not None or cfg.tp != 1 or cfg.dp > 1:
-        raise NotImplementedError("data and tensor parallelism (a mesh, "
-                                  "dp > 1, tp != 1) are not ported yet")
+    if clips is None and distributed.is_multiprocess():
+        # rank 0 extracts the features and writes their caches first, so
+        # that every rank then reads the same cached values
+        with distributed.fenced("feature-cache"):
+            if distributed.rank() == 0:
+                prepare_datasets(cfg, None, device)
     ds, train_view, val_view = prepare_datasets(cfg, clips, device)
     if split_indices is not None:
         train_idx, val_idx = split_indices
@@ -305,27 +325,34 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
             f"zero optimizer steps. Lower --batch_size (≤{len(train_view)}) "
             f"or add data.")
     steps_per_epoch = max(1, len(train_view) // cfg.batch_size)
-    cfg = _maybe_auto_remat(cfg, 1, verbose, device)
+    n_data_shards = 1 if mesh is None else mesh.dp
+    save_ckpt = save_artifacts     # collective: every rank
+    save_artifacts = save_artifacts and distributed.rank() == 0
+    cfg = _maybe_auto_remat(cfg, n_data_shards, verbose, device)
 
     generator = (None if init_state_dict is not None else
                  torch.Generator(device=device).manual_seed(cfg.seed))
     state = init_train_state(cfg, steps_per_epoch, generator=generator,
-                             device=device, state_dict=init_state_dict)
+                             device=device, state_dict=init_state_dict,
+                             mesh=mesh)
     if verbose:
         print(f"Total number of parameters: "
               f"{sum(p.numel() for p in state.model.parameters())}")
+        if mesh is not None:
+            print(f"Rank mesh: {mesh.shape}, data index {mesh.data_index}")
 
     start_epoch, batch_step = 0, 0
     if cfg.mode == "resume" and os.path.exists(cfg.checkpoint_path):
         start_epoch, batch_step, state = load_checkpoint(
-            cfg.checkpoint_path, cfg, steps_per_epoch, device=device)
+            cfg.checkpoint_path, cfg, steps_per_epoch, device=device,
+            mesh=mesh)
         start_epoch += 1
         if verbose:
             print(f"Resumed from {cfg.checkpoint_path} at epoch {start_epoch}")
 
     total_steps = max(2, steps_per_epoch * cfg.n_epochs)
-    train_step = make_train_step(cfg, total_steps=total_steps)
-    eval_step = make_eval_step(cfg, total_steps=total_steps)
+    train_step = make_train_step(cfg, total_steps=total_steps, mesh=mesh)
+    eval_step = make_eval_step(cfg, total_steps=total_steps, mesh=mesh)
 
     have_val_assets = (os.path.exists(cfg.audio_path)
                        and os.path.exists(cfg.ground_truth_path))
@@ -340,24 +367,30 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
     for epoch in range(start_epoch, cfg.n_epochs):
         state, batch_step, _ = train_one_epoch(
             epoch, state, train_view, val_view, cfg, train_step, eval_step,
-            batch_step=batch_step, device=device,
+            batch_step=batch_step, device=device, mesh=mesh,
             plots_dir=cfg.plots_dir if save_artifacts else None,
             verbose=verbose, history_out=history_out)
-        if save_artifacts:
+        if save_ckpt:
             # the async writes take host snapshots first, then overlap the
             # validation below and the next epoch
             save_checkpoint(state, epoch, batch_step, cfg,
                             async_save=cfg.async_checkpoint)
-            save_final_model(state.model, cfg,
-                             async_save=cfg.async_checkpoint)
-            if have_val_assets:
-                generate_and_save_facial_data(
-                    epoch, cfg.audio_path, state.model,
-                    cfg.ground_truth_path, cfg)
+        # rank 0's work; a failure there raises on every rank
+        with distributed.fenced("epoch-artifacts"):
+            if save_artifacts:
+                save_final_model(state.model, cfg,
+                                 async_save=cfg.async_checkpoint)
+                if have_val_assets:
+                    generate_and_save_facial_data(
+                        epoch, cfg.audio_path, state.model,
+                        cfg.ground_truth_path, cfg)
 
-    if save_artifacts:
+    if save_ckpt:
+        # collective: an export that failed on rank 0 raises on every rank
         wait_for_pending_saves()
-        # a synchronous final write: a good model.pth even if an epoch's
-        # async export failed
-        save_final_model(state.model, cfg)
+    with distributed.fenced("final-export"):
+        if save_artifacts:
+            # a synchronous final write: a good model.pth even if an
+            # epoch's async export failed
+            save_final_model(state.model, cfg)
     return state, batch_step

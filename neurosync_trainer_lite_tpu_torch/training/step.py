@@ -10,8 +10,22 @@ summed and divided by A, and one update follows, as the JAX step's scan.
 
 PyTorch runs eagerly: the step is a Python function over a TrainState that
 it updates in place (the JAX step donates its state). Remat comes with the
-model (cfg.remat and its knobs, models/seq2seq.py); tensor and data
-parallelism are not ported yet and raise.
+model (cfg.remat and its knobs, models/seq2seq.py).
+
+Data parallelism (a mesh, parallel/mesh.py): each rank runs the forward and
+backward on its rows of the batch (batch_rows' layout), micro-batch by
+micro-batch, with each dropout mask the rank's rows of the global
+micro-batch's (ops/attention.py:dropout_rows). Then one explicit
+all-reduce of the flat fp32 gradient, with the loss in its last element,
+over the 'data' group, divided by dp: JAX's single psum. The loss's terms
+are all means, so the mean of equal shards' means is the global mean.
+The pre-clip norm, the clip and Adam follow on every rank from the same
+sums, so every rank holds bitwise the same parameters; init_train_state
+broadcasts rank 0's to start them equal. No DistributedDataParallel: its
+per-bucket hooks fire inside the backward, need no_sync across
+accumulation and meet the remat checkpoints and the port's autograd
+Functions. Overlapping the reduction with the backward is later work.
+Tensor parallelism is not ported yet: tp != 1 raises.
 """
 
 from __future__ import annotations
@@ -21,12 +35,18 @@ from typing import Callable
 
 import torch
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_batch_split
 from neurosync_trainer_lite_tpu_torch.models.loss import (
     loss_fn,
     smoothness_loss_fn,
 )
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq, init_seq2seq
+from neurosync_trainer_lite_tpu_torch.ops.attention import dropout_rows
+from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
+    all_reduce_mean_,
+    broadcast_,
+)
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import Mesh, resolve_mesh
 from neurosync_trainer_lite_tpu_torch.training.optim import (
     clip_by_global_norm_,
     global_norm,
@@ -44,17 +64,34 @@ class TrainState:
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.tp != 1 or cfg.dp > 1:
-        raise NotImplementedError("tensor and data parallelism are not "
-                                  "ported yet")
+    if cfg.tp != 1:
+        raise NotImplementedError("tensor parallelism is not ported yet")
+
+
+def _broadcast_state(state: TrainState, mesh: Mesh | None) -> None:
+    """Every rank takes rank 0's parameters and Adam moments. Adam's step
+    counts stay: they are host scalars, equal on every rank that read the
+    same checkpoint (and absent before the first step)."""
+    if mesh is None:
+        return
+    tensors = [p.data for p in state.model.parameters()]
+    for param_state in state.optimizer.state.values():
+        tensors += [v for k, v in sorted(param_state.items())
+                    if k != "step" and isinstance(v, torch.Tensor)]
+    broadcast_(tensors, mesh)
 
 
 def init_train_state(cfg: Config, steps_per_epoch: int, *,
                      generator: torch.Generator | None = None, device=None,
-                     state_dict=None) -> TrainState:
+                     state_dict=None, optimizer_state=None,
+                     mesh: Mesh | None = None) -> TrainState:
     """A model in train mode (seeded init from `generator`, which lives on
-    the device, or `state_dict`), its Adam and its LR schedule."""
+    the device, or `state_dict`), its Adam (from `optimizer_state` if
+    given) and its LR schedule. Under a mesh (default: the config's,
+    parallel/mesh.py:resolve_mesh) every rank starts from rank 0's weights
+    and moments."""
     _check_ported(cfg)
+    mesh = resolve_mesh(cfg, mesh)
     device = resolve_device(device)
     if state_dict is None:
         if generator is None:
@@ -65,8 +102,12 @@ def init_train_state(cfg: Config, steps_per_epoch: int, *,
         model = Seq2Seq(cfg, device)
         model.load_state_dict(state_dict, strict=True)
     model.train()
-    return TrainState(model, make_optimizer(cfg, model.parameters()),
-                      make_schedule(cfg, steps_per_epoch))
+    state = TrainState(model, make_optimizer(cfg, model.parameters()),
+                       make_schedule(cfg, steps_per_epoch))
+    if optimizer_state is not None:
+        state.optimizer.load_state_dict(optimizer_state)
+    _broadcast_state(state, mesh)
+    return state
 
 
 def opt_step_count(state: TrainState) -> int:
@@ -88,10 +129,34 @@ def _compute_loss(model, src, trg, cfg: Config, generator, step_count=None,
                    w3=cfg.w3, zero_penalty_weight=cfg.zero_penalty_weight)
 
 
-def make_train_step(cfg: Config, *, total_steps: int = 1):
+def _reduce_gradients(grads: list[torch.Tensor], loss: torch.Tensor,
+                      mesh: Mesh) -> torch.Tensor:
+    """The mean over the 'data' ranks of every gradient (in place) and of
+    the loss (returned, a copy: a view would keep the flat buffer alive
+    while the loop holds the epoch's losses), in one all-reduce of a flat
+    fp32 buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+    all_reduce_mean_(flat, mesh)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset: offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1].clone()
+
+
+def make_train_step(cfg: Config, *, total_steps: int = 1,
+                    mesh: Mesh | None = None):
     """Returns step(state, src, trg, generator) → (state, loss, grad_norm),
-    the grad norm taken before the clip. Loss and norm stay on the device."""
+    the grad norm taken before the clip. Loss and norm stay on the device.
+
+    Under a mesh (default: the config's, parallel/mesh.py:resolve_mesh)
+    src and trg are this rank's rows (batch_rows) and the loss and norm
+    are the global batch's, equal on every rank."""
     _check_ported(cfg)
+    mesh = resolve_mesh(cfg, mesh)
+    if mesh is not None:
+        check_batch_split(cfg.batch_size, cfg.grad_accum_steps, mesh.dp)
+    rows = (1, 0) if mesh is None else (mesh.dp, mesh.data_index)
     anneal = cfg.loss_variant == "smoothness" and cfg.smoothness_annealing
     if anneal and total_steps <= 1:
         # with total_steps=1 the phase is a multiple of 2π at every step
@@ -109,16 +174,20 @@ def make_train_step(cfg: Config, *, total_steps: int = 1):
         model.train()
         opt.zero_grad(set_to_none=True)
         loss = None
-        for s, t in zip(src.chunk(accum), trg.chunk(accum)):
-            micro = _compute_loss(model, s, t, cfg, generator, step_count,
-                                  total_steps)
-            micro.backward()
-            loss = micro.detach() if loss is None else loss + micro.detach()
+        with dropout_rows(*rows):
+            for s, t in zip(src.chunk(accum), trg.chunk(accum)):
+                micro = _compute_loss(model, s, t, cfg, generator,
+                                      step_count, total_steps)
+                micro.backward()
+                loss = (micro.detach() if loss is None
+                        else loss + micro.detach())
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if accum > 1:
             for g in grads:
                 g.div_(accum)
             loss = loss / accum
+        if mesh is not None:
+            loss = _reduce_gradients(grads, loss, mesh)
         grad_norm = global_norm(grads)
         clip_by_global_norm_(grads, grad_norm, cfg.grad_clip)
         lr = state.schedule(count)
@@ -130,16 +199,22 @@ def make_train_step(cfg: Config, *, total_steps: int = 1):
     return step
 
 
-def make_eval_step(cfg: Config, *, total_steps: int = 1):
+def make_eval_step(cfg: Config, *, total_steps: int = 1,
+                   mesh: Mesh | None = None):
     """Returns step(model, src, trg, step_count=None) → loss, dropout off.
 
     step_count matters only for the annealed smoothness loss: the
     optimizer's count keeps the validation loss on the training loss's
-    alpha/beta scale."""
+    alpha/beta scale. Under a mesh the loss of this rank's rows is
+    all-reduced to the global batch's mean."""
+    mesh = resolve_mesh(cfg, mesh)
 
     @torch.no_grad()
     def step(model, src, trg, step_count=None):
-        return _compute_loss(model, src, trg, cfg, None, step_count,
+        loss = _compute_loss(model, src, trg, cfg, None, step_count,
                              total_steps)
+        if mesh is not None:
+            loss = all_reduce_mean_(loss.reshape(1), mesh)[0]
+        return loss
 
     return step

@@ -567,3 +567,38 @@ def test_ffn_fused_step_on_the_card_runs_k2(gen, monkeypatch):
     assert runs["default"][2] == 0 and runs["fused"][2] == 2 + 2
     assert runs["fused"][0] == runs["default"][0]
     assert runs["fused"][1] == pytest.approx(runs["default"][1], rel=2e-2)
+
+
+def test_nccl_one_rank_step_equals_no_group_bitwise(gen, tmp_path):
+    """A DP step through an NCCL group of one rank and its all-reduce of the
+    flat gradient equals the step with no group bit for bit, at dropout
+    0.3 with two micro-batches: losses, grad norms, every parameter."""
+    from neurosync_trainer_lite_tpu_torch.parallel import (
+        distributed, make_mesh)
+
+    cfg = Config(hidden_dim=128, n_layers=2, num_heads=4, batch_size=8,
+                 micro_batch_size=32, dropout=0.3, grad_accum_steps=2)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    src = _randn(gen, 8, 32, cfg.input_dim)
+    trg = torch.rand(8, 32, cfg.output_dim, device="cuda", generator=gen)
+
+    def run(mesh):
+        state = init_train_state(cfg, 10, device="cuda", state_dict=weights,
+                                 mesh=mesh)
+        step = make_train_step(cfg, mesh=mesh)
+        steps = torch.Generator().manual_seed(4)
+        out = [tuple(float(x) for x in step(state, src, trg, steps)[1:])
+               for _ in range(3)]
+        return out, [p.detach().clone() for p in state.model.parameters()]
+
+    plain, plain_params = run(None)
+    distributed.initialize_distributed(
+        init_method=f"file://{tmp_path / 'store'}", num_processes=1,
+        process_id=0, timeout_s=60)
+    try:
+        assert distributed.world_size() == 1
+        grouped, params = run(make_mesh(cfg))
+    finally:
+        distributed.destroy()
+    assert grouped == plain
+    assert all(torch.equal(a, b) for a, b in zip(params, plain_params))

@@ -45,6 +45,10 @@ from neurosync_trainer_lite_tpu_torch.ops.frontend import (
     extract_audio_features_bucketed,
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
+from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
+    initialize_distributed,
+    rank_device,
+)
 from neurosync_trainer_lite_tpu_torch.ops.rope_kernel import rope_rotate_cuda
 from neurosync_trainer_lite_tpu_torch.ops.ffn_bwd import ffn_bwd_dh1_cuda
 from neurosync_trainer_lite_tpu_torch.train import main as train_main
@@ -71,6 +75,7 @@ bad = sorted(n for n in sys.modules
                               "neurosync_trainer_lite_tpu.", "pandas.",
                               "matplotlib.")))
 need = [pkg.__name__ + m for m in (".ops.flash_attention", ".ops.ffn_bwd",
+                                   ".parallel.mesh", ".parallel.distributed",
                                    ".training.loop", ".train",
                                    ".inference.streaming",
                                    ".inference.multi_stream",
@@ -160,6 +165,13 @@ ENTRY_POINTS = {
     "MultiStreamer": lambda: MultiStreamer(_cpu_model(), CFG),
     "server.serve": lambda: serve(_cpu_model(), CFG, port=0),
     "server.main": lambda: server_main(["--model", str(TINY)]),
+    "rank_device": lambda: rank_device(),
+    "initialize_distributed": lambda: initialize_distributed(
+        init_method="file:///nonexistent/store", num_processes=1,
+        process_id=0),
+    "train.main --coordinator": lambda: train_main(
+        ["--tiny", "--coordinator", "127.0.0.1:1", "--num_processes", "1",
+         "--process_id", "0"]),
 }
 
 

@@ -114,9 +114,13 @@ def test_loud_failures_match_jax(case):
     assert str(ours.value) == str(theirs.value)
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(dp=2)])
-def test_parallel_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("kw,error,match", [
+    (dict(tp=2), NotImplementedError, "not ported"),
+    (dict(dp=2), ValueError, "mesh 2x1 needs 2 devices, have 1")])
+def test_parallel_configs_raise(kw, error, match):
+    """tp != 1 is not ported; dp = 2 with no process group is JAX's mesh
+    error (one rank, no fallback to a single process)."""
+    with pytest.raises(error, match=match):
         tloop.train_model(Config(**dict(GEOM, **kw)), _clips(), device="cpu")
 
 
@@ -133,7 +137,7 @@ def test_cli_flags_cover_every_config_field():
                                    "--profile", "p"])
     assert cfg.hidden_dim == 48 and cfg.n_layers == 4 and not cfg.use_amp
     assert (args.device, args.profile) == ("cpu", "p")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(SystemExit, match="need --coordinator HOST:PORT"):
         tcli.main(["--tiny", "--device", "cpu", "--num_processes", "2"])
 
 

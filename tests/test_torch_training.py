@@ -518,9 +518,10 @@ def test_dropout_step_is_seeded_by_the_generator(use_amp):
 
 
 def test_unported_options_raise():
-    for kw in ({"tp": 2}, {"dp": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tstep.make_train_step(Config(**GEOM, **kw))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tstep.make_train_step(Config(**GEOM, tp=2))
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        tstep.make_train_step(Config(**GEOM, dp=2))
     with pytest.raises(ValueError, match="total_steps"):
         tstep.make_train_step(Config(**GEOM, loss_variant="smoothness",
                                      smoothness_annealing=True))
