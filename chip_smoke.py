@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only serve-s2   # phases 1, 2 and 7b alone
     python3 chip_smoke.py --only live       # phases 1, 2 and 7c alone
     python3 chip_smoke.py --only parallel   # phases 1, 2 and 12 alone
+    python3 chip_smoke.py --only tensor     # phases 1, 2 and 13 alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -160,13 +161,42 @@ exits non-zero before its result line.
    second, the ranks' histories equal, rank 0's model.pth serving
    test_set/audio.wav; epoch seconds. (p2)-(p4) share one card, so they
    measure correctness and the reduction's cost, not scaling.
+13. Tensor parallelism (parallel/tensor.py, the 'model' axis), every
+   process a subprocess of this script. (t1) In a process of its own, the
+   kernels at a tp = 2 rank's shapes of the full-width model (8 of the 16
+   heads, 2048 of the 4096 FFN columns), against their plain versions and
+   timed beside their bounds: K1 (bitwise) and the K4 forward at [17 |
+   128, 128, 512], the K4 backward at [128, 128, 512], K3 forward and
+   backward at [32, 8, 512, 64], K2 at [16384, 1024, 2048] (on the wgmma
+   kernel); checked, untimed, at the other shapes the phase gives them
+   (K1 at 32 and 8 rows in bf16 and 17 in fp32, K4 at 32, K2 at M = 4096
+   and 1024 on the wgmma kernel). Then ranks as subprocesses over gloo on
+   the one card, every rank at the full width with its shard: (t2) MeshDecoder at (dp, tp) =
+   (1, 2) on the 30 s request's 17 chunks, bf16 within 5% and fp32 within
+   TP_DECODE_FP32_LIMIT of max|out| of one process's decode; (t3) 3 steps
+   at tp 2, batch 32 x 128, at 'pallas', dropout 0 (K4) and 'auto',
+   dropout 0.3 with the FFN through K2 (K1, K2): per rank the launches of
+   each step (K1 52, K4 24 + 24; K1 100, K2 16) and its 'model'
+   all-reduces (40 forward, 88 backward, 1 for the grad norm) asserted,
+   the first step within TP_FIRST_STEP_LIMITS of one process on the same
+   weights and rows, which two planted faults (a column-parallel backward
+   without its all-reduce; masks drawn at the local width) must exceed,
+   the replicated leaves bitwise equal across the ranks; prints the step
+   median a rank, the 'model' all-reduces' time in a timed step and their
+   share, the peak memory a rank beside one process's; (t4) four ranks at
+   (2, 2), batch 16, one step of the K2 configuration against one process;
+   (t5) train_model at tp 2 on a copy of dataset/data (batch 32, 4 steps,
+   a checkpoint), its model.pth equal to the gathered parameters and
+   serving test_set/audio.wav, then a resume at tp 1 from its checkpoint.
+   The ranks time-share the card and reduce through the host: correctness
+   and the reduction's cost, not scaling.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
 runs, the serving runs, the live runs, one training step at each
-configuration and the parallel runs (every rank's launches), each counted
-from zero; launches_by_path: each run's own count); the last line the
-result.
+configuration and the parallel and tensor runs (every rank's launches),
+each counted from zero; launches_by_path: each run's own count); the last
+line the result.
 """
 
 from __future__ import annotations
@@ -211,6 +241,34 @@ DP_CONFIGS = {"'pallas', dropout 0": dict(attention_impl="pallas",
                                           dropout=0.0),
               "'auto', dropout 0.3": {},
               "'auto', dropout 0.3, accum 2": dict(grad_accum_steps=2)}
+#: the tensor phase (13): (t3)'s steps and batch, (t4)'s batch, (t5)'s
+#: steps; the first step against one process, relative (loss, grad norm):
+#: bf16 roundings flipped by the fp32 sums' order over 16 layers read
+#: 4.8e-5 to 5.6e-5 in loss and 1.2e-4 to 5.7e-4 in norm on the H100
+#: (PERF.md §6); the planted faults read 1.8e-3 (loss, masks at the
+#: local width) and 1.7e-1 (norm, every column backward without its
+#: all-reduce)
+TP_STEPS, TP_BATCH, TP_DP_BATCH, TP_LOOP_STEPS = 3, 32, 16, 4
+TP_FIRST_STEP_LIMITS = (2e-4, 2e-3)
+#: (t3)'s configurations: Config overrides, and whether seq2seq._ffn
+#: routes the FFN through K2; (t4) runs one of them, the faults another
+TP_CONFIGS = {"'pallas', dropout 0": (dict(attention_impl="pallas",
+                                           dropout=0.0), False),
+              "'auto', dropout 0.3, FFN through K2": ({}, True)}
+TP_DP_CONFIG = TP_PLANTED_CONFIG = "'auto', dropout 0.3, FFN through K2"
+#: kernel launches of one step at each, and the 'model' all-reduces of one
+#: full-width step (8 + 8 layers): a row-parallel linear's forward (2 an
+#: encoder layer, 3 a decoder layer), a column-parallel linear's backward
+#: (4 and 7), the grad norm's
+TP_LAUNCHES = {"'pallas', dropout 0": {"rope_rotate": 52,
+                                       "fused_rope_attention": 24,
+                                       "fused_rope_attention_bwd": 24},
+               "'auto', dropout 0.3, FFN through K2": {"rope_rotate": 100,
+                                                       "ffn_bwd_dh1": 16}}
+TP_COLLECTIVES = {"forward": 8 * 2 + 8 * 3, "backward": 8 * 4 + 8 * 7,
+                  "grad_norm": 1}
+#: (t2)'s fp32 MeshDecoder against one process, a share of max|out|
+TP_DECODE_FP32_LIMIT = 1e-5
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
 #: (s2) the 30 s request at frame_size 512 (4 chunks)
@@ -512,50 +570,14 @@ def kernel_checks(torch, records):
                  True)):
             x = torch.randn(batch, T, H, device="cuda", generator=gen).to(
                 dtype)
-            item = x.element_size()
-            rec = dict(
-                ms=device_ms(lambda: rk.rope_rotate_cuda(
-                    x, *tiled, transpose=transpose)),
-                plain_ms=device_ms(lambda: rk.rope_rotate_plain(
-                    x, *tiled, transpose=transpose)),
-                eager_ms=eager_ms(lambda: rk.rope_rotate_cuda(
-                    x, *tiled, transpose=transpose)),
-                shape=[batch, T, H], dtype=str(dtype), transpose=transpose)
-            # x read and out written once, the three fp32 tables once; 5
-            # flops an element on the CUDA cores
-            rec["bound_ms"], rec["bound_by"] = bound(
-                2 * x.numel() * item + 3 * T * H * 4, 5 * x.numel())
-            k1_by[label] = rec
+            k1_by[label] = k1_timed(torch, x, tiled, transpose)
             del x
 
             if dtype != torch.bfloat16:
                 continue
             q, k, v = (torch.randn(batch, T, H, device="cuda", generator=gen)
                        .to(dtype) for _ in range(3))
-            rec = dict(
-                ms=device_ms(lambda: fua.fused_rope_attention_cuda(
-                    q, k, v, tables, n, hd ** -0.5)),
-                plain_ms=device_ms(lambda: fua.fused_rope_attention_plain(
-                    q, k, v, tables, n, hd ** -0.5), iters=5),
-                eager_ms=eager_ms(lambda: fua.fused_rope_attention_cuda(
-                    q, k, v, tables, n, hd ** -0.5)),
-                shape=[batch, T, H])
-            # q·kᵀ and p·v (2·T·T·H each) with bf16 operands at the tensor
-            # cores' peak, where the bf16 kernel runs them; the rotation of
-            # q and k (5 flops an element each) and the softmax (~5 a score)
-            # on the CUDA cores; q, k, v read and out written once, six fp32
-            # tables. `split_ms`: the products as the kernel executes them,
-            # split-bf16 (three mma for q·kᵀ, two for p·v: 10·B·T·T·H), at
-            # the tensor cores' peak
-            pairs = batch * T * T
-            rec["bound_ms"], rec["bound_by"] = bound(
-                4 * batch * T * H * item + 6 * T * H * 4,
-                10 * batch * T * H + 5 * n * pairs, bf16_flops=4 * pairs * H)
-            rec["split_ms"] = 10 * pairs * H / BF16_FLOP_PER_S * 1e3
-            rec["fp32_bound_ms"] = bound(
-                4 * batch * T * H * item + 6 * T * H * 4,
-                10 * batch * T * H + 5 * n * pairs + 4 * pairs * H)[0]
-            k4_by[label] = rec
+            k4_by[label] = k4_fwd_timed(torch, q, k, v, tables, n)
             del q, k, v
 
     records["rope_rotate"].update(
@@ -569,21 +591,81 @@ def kernel_checks(torch, records):
     records["fused_rope_attention_bwd"].update(k4_backward(torch, gen))
     for name, by in (("rope_rotate", k1_by), ("fused_rope_attention", k4_by)):
         for label, r in by.items():
-            print(f"time {name} ({label}) at {r['shape']} "
-                  f"{r.get('dtype', 'torch.bfloat16')}: {r['ms']:.6f} ms on "
-                  f"the card (CUDA graph), {r['eager_ms']:.6f} ms eager, "
-                  f"plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} "
-                  f"ms ({r['bound_by']}; {r['ms'] / r['bound_ms']:.2f}x)"
-                  + (f"; split-bf16 products as executed at the tensor "
-                     f"cores' peak {r['split_ms']:.6f} ms; every operation on "
-                     f"the fp32 CUDA cores {r['fp32_bound_ms']:.6f} ms"
-                     if "split_ms" in r else ""), flush=True)
-    r = records["fused_rope_attention_bwd"]
-    print(f"time fused_rope_attention_bwd at {r['shape']} bf16: "
-          f"{r['ms']:.6f} ms on the card (CUDA graph), {r['eager_ms']:.6f} ms "
-          f"eager, plain {r['plain_ms']:.6f} ms, bound {r['bound_ms']:.6f} ms "
-          f"({r['bound_by']}); fp32-operand products on the CUDA cores "
-          f"{r['fp32_bound_ms']:.6f} ms", flush=True)
+            print_timed(name, label, r)
+    print_timed("fused_rope_attention_bwd", "training",
+                records["fused_rope_attention_bwd"])
+
+
+def print_timed(name: str, label: str, r: dict) -> None:
+    """One timed kernel: its time beside its plain version's, the library
+    call's where there is one, and its bound."""
+    extra = {"eager_ms": "eager", "library_ms": "library call",
+             "library_fwd_bwd_ms": "library forward + backward (CUDA "
+                                   "events)",
+             "split_ms": "split-bf16 products as executed at the tensor "
+                         "cores' peak",
+             "fp32_bound_ms": "every fp32-operand product on the fp32 CUDA "
+                              "cores"}
+    print(f"time {name} ({label}) at {r['shape']} "
+          f"{r.get('dtype', 'torch.bfloat16')}: {r['ms']:.6f} ms on the card "
+          f"(CUDA graph), plain {r['plain_ms']:.6f} ms, bound "
+          f"{r['bound_ms']:.6f} ms ({r['bound_by']}; "
+          f"{r['ms'] / r['bound_ms']:.2f}x)"
+          + "".join(f"; {what} {r[key]:.6f} ms" for key, what in extra.items()
+                    if key in r), flush=True)
+
+
+def k1_timed(torch, x, tables, transpose: bool = False) -> dict:
+    """K1 on x [B, T, H] beside its plain version and its bound."""
+    from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
+
+    _, T, H = x.shape
+    rec = dict(
+        ms=device_ms(lambda: rk.rope_rotate_cuda(x, *tables,
+                                                 transpose=transpose)),
+        plain_ms=device_ms(lambda: rk.rope_rotate_plain(
+            x, *tables, transpose=transpose)),
+        eager_ms=eager_ms(lambda: rk.rope_rotate_cuda(x, *tables,
+                                                      transpose=transpose)),
+        shape=list(x.shape), dtype=str(x.dtype), transpose=transpose)
+    # x read and out written once, the three fp32 tables once; 5 flops an
+    # element on the CUDA cores
+    rec["bound_ms"], rec["bound_by"] = bound(
+        2 * x.numel() * x.element_size() + 3 * T * H * 4, 5 * x.numel())
+    return rec
+
+
+def k4_fwd_timed(torch, q, k, v, tables, n: int) -> dict:
+    """The K4 forward on [B, T, H] with n heads beside its plain version and
+    its bound."""
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+
+    batch, T, H = q.shape
+    hd, item = H // n, q.element_size()
+    with torch.no_grad():
+        rec = dict(
+            ms=device_ms(lambda: fua.fused_rope_attention_cuda(
+                q, k, v, tables, n, hd ** -0.5)),
+            plain_ms=device_ms(lambda: fua.fused_rope_attention_plain(
+                q, k, v, tables, n, hd ** -0.5), iters=5),
+            eager_ms=eager_ms(lambda: fua.fused_rope_attention_cuda(
+                q, k, v, tables, n, hd ** -0.5)),
+            shape=[batch, T, H])
+    # q·kᵀ and p·v (2·T·T·H each) with bf16 operands at the tensor cores'
+    # peak, where the bf16 kernel runs them; the rotation of q and k (5
+    # flops an element each) and the softmax (~5 a score) on the CUDA cores;
+    # q, k, v read and out written once, six fp32 tables. `split_ms`: the
+    # products as the kernel executes them, split-bf16 (three mma for q·kᵀ,
+    # two for p·v: 10·B·T·T·H), at the tensor cores' peak
+    pairs = batch * T * T
+    rec["bound_ms"], rec["bound_by"] = bound(
+        4 * batch * T * H * item + 6 * T * H * 4,
+        10 * batch * T * H + 5 * n * pairs, bf16_flops=4 * pairs * H)
+    rec["split_ms"] = 10 * pairs * H / BF16_FLOP_PER_S * 1e3
+    rec["fp32_bound_ms"] = bound(
+        4 * batch * T * H * item + 6 * T * H * 4,
+        10 * batch * T * H + 5 * n * pairs + 4 * pairs * H)[0]
+    return rec
 
 
 def k4_forward_check(torch, fua, q, k, v, tables, n) -> float:
@@ -708,6 +790,17 @@ def k4_backward(torch, gen):
 
     q, k, v, do = (torch.randn(B, T, H, device="cuda", generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
+    return {**k4_bwd_timed(torch, q, k, v, do, tables, n),
+            "max_abs_err": worst}
+
+
+def k4_bwd_timed(torch, q, k, v, do, tables, n: int) -> dict:
+    """The K4 backward on bf16 [B, T, H] with n heads beside its plain
+    version and its bound."""
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+
+    B, T, H = q.shape
+    scale = (H // n) ** -0.5
     rec = dict(
         ms=device_ms(lambda: fua.fused_rope_attention_bwd_cuda(
             q, k, v, do, tables, n, scale), iters=5),
@@ -726,8 +819,7 @@ def k4_backward(torch, gen):
     nbytes = 7 * B * T * H * 2 + 6 * T * H * 4
     cores = 20 * B * T * H + 10 * B * n * T * T
     b_ms, b_by = bound(nbytes, cores, bf16_flops=10 * B * T * T * H)
-    rec.update(bound_ms=b_ms, bound_by=b_by, max_abs_err=worst,
-               shape=[B, T, H],
+    rec.update(bound_ms=b_ms, bound_by=b_by, shape=[B, T, H],
                fp32_bound_ms=bound(nbytes, 8 * B * T * T * H + cores,
                                    bf16_flops=2 * B * T * T * H)[0])
     return rec
@@ -738,8 +830,6 @@ def k3_checks(torch, records):
     plain versions at (c), (d) and a ragged cross-length shape, in bf16 and
     fp32, the backward bitwise repeatable; then timed in bf16 at (c) and
     (d) beside the plain versions, the bounds and SDPA."""
-    import torch.nn.functional as F
-
     from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
     from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
     from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
@@ -804,82 +894,8 @@ def k3_checks(torch, records):
     for label, (B, N, T, h) in K3_SHAPES.items():
         q, k, v, do = (randn(B, N, T, h, dtype=torch.bfloat16)
                        for _ in range(4))
-        scale = h ** -0.5
-        iters = 10 if T <= 512 else 4
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-
-        def sdpa_fwd_bwd():
-            out = F.scaled_dot_product_attention(qg, kg, vg)
-            torch.autograd.grad(out, (qg, kg, vg), do)
-
-        pairs = B * N * T * T
-        item = q.element_size()
-        # forward: q·kᵀ and p·v (2h flops a pair each) have bf16 operands,
-        # p being rounded to v's type first; softmax ~5 a pair. Backward:
-        # the five products (s = q·kᵀ, dp = dO·vᵀ, pᵀ·dO, ds·k, dsᵀ·q) all
-        # at the tensor cores' peak, which the split-bf16 kernels run them
-        # on; softmax, D and ds ~10 a pair. `split_bound_ms`: the three
-        # fp32-operand products on the CUDA cores instead, as counted
-        # before the tensor-core kernels. `exp_ms`: the exps the kernels
-        # take (2 a pair forward, 3 backward) on the MUFU alone.
-        with torch.no_grad():
-            fwd = dict(
-                ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, scale),
-                             iters=iters),
-                plain_ms=device_ms(lambda: fa.flash_attention_plain(
-                    q, k, v, scale), iters=iters),
-                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v), iters=iters),
-                bf16_flops=4 * pairs * h, flops=5 * pairs,
-                bytes=4 * q.numel() * item, exps=2 * pairs)
-            bwd = dict(
-                ms=device_ms(lambda: fa.flash_attention_bwd_cuda(
-                    q, k, v, do, scale), iters=iters),
-                plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(
-                    q, k, v, do, scale), iters=max(2, iters // 2)),
-                bf16_flops=10 * pairs * h, flops=10 * pairs,
-                bytes=7 * q.numel() * item, exps=3 * pairs,
-                split_bound_ms=bound(7 * q.numel() * item,
-                                     6 * pairs * h + 10 * pairs,
-                                     4 * pairs * h)[0])
-        # SDPA's backward alone, replayed like the kernel's: its kernels run
-        # on the stream of their forward, so the forward runs on the stream
-        # the graph captures
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            out = F.scaled_dot_product_attention(qg, kg, vg)
-        bwd["library_ms"] = device_ms(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), iters=iters,
-            stream=stream)
-        # and the library's whole VJP (CUDA events around an eager loop)
-        bwd["library_fwd_bwd_ms"] = event_ms(sdpa_fwd_bwd, iters=iters)
-        for rec in (fwd, bwd):
-            rec["bound_ms"], rec["bound_by"] = bound(
-                rec["bytes"], rec["flops"], rec["bf16_flops"])
-            every = rec["flops"] + rec["bf16_flops"]
-            rec["fp32_bound_ms"] = bound(rec["bytes"], every)[0]
-            rec["tensor_core_bound_ms"] = every / BF16_FLOP_PER_S * 1e3
-            rec["exp_ms"] = rec["exps"] / EXP_PER_S * 1e3
-            rec["shape"] = [B, N, T, h]
-        timed[label] = (fwd, bwd)
-        for name, rec in (("flash_attention", fwd),
-                          ("flash_attention_bwd", bwd)):
-            print(f"time {name} ({label}) at {rec['shape']} bf16: "
-                  f"{rec['ms']:.6f} ms on the card (CUDA graph), plain "
-                  f"{rec['plain_ms']:.6f} ms, SDPA "
-                  f"{'forward' if rec is fwd else 'backward'} "
-                  f"{rec['library_ms']:.6f} ms"
-                  + (f" (forward + backward {rec['library_fwd_bwd_ms']:.6f} "
-                     f"ms, CUDA events)" if rec is bwd else "")
-                  + f", bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
-                  f"products on tensor cores), every operation on fp32 "
-                  f"CUDA cores {rec['fp32_bound_ms']:.6f} ms, on tensor cores "
-                  f"{rec['tensor_core_bound_ms']:.6f} ms"
-                  + (f", fp32-operand products on CUDA cores "
-                     f"{rec['split_bound_ms']:.6f} ms" if rec is bwd else "")
-                  + f"; exps on the MUFU {rec['exp_ms']:.6f} ms", flush=True)
-        del q, k, v, do, qg, kg, vg, out
+        timed[label] = k3_timed(torch, q, k, v, do, label)
+        del q, k, v, do
         torch.cuda.empty_cache()
 
     for i, name in enumerate(("flash_attention", "flash_attention_bwd")):
@@ -892,6 +908,91 @@ def k3_checks(torch, records):
                 "shape", "ms", "plain_ms", "library_ms", "library_fwd_bwd_ms",
                 "bound_ms", "bound_by")
                 if key in rec[i]} for label, rec in timed.items()})
+
+
+def k3_timed(torch, q, k, v, do, label: str):
+    """K3's forward and backward on bf16 [B, N, T, h] beside their plain
+    versions, their bounds and SDPA's forward and backward: (fwd, bwd)."""
+    import torch.nn.functional as F
+
+    from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
+
+    B, N, T, h = q.shape
+    scale = h ** -0.5
+    iters = 10 if T <= 512 else 4
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    pairs = B * N * T * T
+    item = q.element_size()
+    # forward: q·kᵀ and p·v (2h flops a pair each) have bf16 operands, p
+    # being rounded to v's type first; softmax ~5 a pair. Backward: the
+    # five products (s = q·kᵀ, dp = dO·vᵀ, pᵀ·dO, ds·k, dsᵀ·q) all at the
+    # tensor cores' peak, which the split-bf16 kernels run them on;
+    # softmax, D and ds ~10 a pair. `split_bound_ms`: the three
+    # fp32-operand products on the CUDA cores instead, as counted before
+    # the tensor-core kernels. `exp_ms`: the exps the kernels take (2 a
+    # pair forward, 3 backward) on the MUFU alone.
+    with torch.no_grad():
+        fwd = dict(
+            ms=device_ms(lambda: fa.flash_attention_cuda(q, k, v, scale),
+                         iters=iters),
+            plain_ms=device_ms(lambda: fa.flash_attention_plain(
+                q, k, v, scale), iters=iters),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), iters=iters),
+            bf16_flops=4 * pairs * h, flops=5 * pairs,
+            bytes=4 * q.numel() * item, exps=2 * pairs)
+        bwd = dict(
+            ms=device_ms(lambda: fa.flash_attention_bwd_cuda(
+                q, k, v, do, scale), iters=iters),
+            plain_ms=device_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, do, scale), iters=max(2, iters // 2)),
+            bf16_flops=10 * pairs * h, flops=10 * pairs,
+            bytes=7 * q.numel() * item, exps=3 * pairs,
+            split_bound_ms=bound(7 * q.numel() * item,
+                                 6 * pairs * h + 10 * pairs,
+                                 4 * pairs * h)[0])
+    # SDPA's backward alone, replayed like the kernel's: its kernels run
+    # on the stream of their forward, so the forward runs on the stream
+    # the graph captures
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = F.scaled_dot_product_attention(qg, kg, vg)
+    bwd["library_ms"] = device_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), iters=iters,
+        stream=stream)
+    # and the library's whole VJP (CUDA events around an eager loop)
+    bwd["library_fwd_bwd_ms"] = event_ms(sdpa_fwd_bwd, iters=iters)
+    for rec in (fwd, bwd):
+        rec["bound_ms"], rec["bound_by"] = bound(
+            rec["bytes"], rec["flops"], rec["bf16_flops"])
+        every = rec["flops"] + rec["bf16_flops"]
+        rec["fp32_bound_ms"] = bound(rec["bytes"], every)[0]
+        rec["tensor_core_bound_ms"] = every / BF16_FLOP_PER_S * 1e3
+        rec["exp_ms"] = rec["exps"] / EXP_PER_S * 1e3
+        rec["shape"] = [B, N, T, h]
+    for name, rec in (("flash_attention", fwd),
+                      ("flash_attention_bwd", bwd)):
+        print(f"time {name} ({label}) at {rec['shape']} bf16: "
+              f"{rec['ms']:.6f} ms on the card (CUDA graph), plain "
+              f"{rec['plain_ms']:.6f} ms, SDPA "
+              f"{'forward' if rec is fwd else 'backward'} "
+              f"{rec['library_ms']:.6f} ms"
+              + (f" (forward + backward {rec['library_fwd_bwd_ms']:.6f} "
+                 f"ms, CUDA events)" if rec is bwd else "")
+              + f", bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}; "
+              f"products on tensor cores), every operation on fp32 "
+              f"CUDA cores {rec['fp32_bound_ms']:.6f} ms, on tensor cores "
+              f"{rec['tensor_core_bound_ms']:.6f} ms"
+              + (f", fp32-operand products on CUDA cores "
+                 f"{rec['split_bound_ms']:.6f} ms" if rec is bwd else "")
+              + f"; exps on the MUFU {rec['exp_ms']:.6f} ms", flush=True)
+    return fwd, bwd
 
 
 def k2_checks(torch, records):
@@ -936,9 +1037,20 @@ def k2_checks(torch, records):
                   f"K2 [{m}, {h}, {f}] scale {scale:.6f} bitwise repeatable")
         del dy, w, am, out, ref, again
 
-    m, h, f = K2_SHAPES[0]
-    dy, w, am = inputs(m, h, f)
-    scale = 256 / 179
+    dy, w, am = inputs(*K2_SHAPES[0])
+    rec = k2_timed(torch, dy, w, am)
+    records["ffn_bwd_dh1"].update(rec, max_abs_err=worst)
+    print_timed("ffn_bwd_dh1", "(a)", rec)
+    del dy, w, am
+    torch.cuda.empty_cache()
+
+
+def k2_timed(torch, dy, w, am, scale: float = 256 / 179) -> dict:
+    """K2 on dy [M, H], W [H, F], am [M, F] beside its plain version, its
+    bound and cuBLAS's dy·W alone (library_ms)."""
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+
+    (m, h), f = dy.shape, w.shape[1]
     rec = dict(
         ms=device_ms(lambda: ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=scale),
                      iters=10),
@@ -954,15 +1066,8 @@ def k2_checks(torch, records):
         bf16_flops=2 * m * h * f)
     rec["tensor_core_bound_ms"] = 2 * m * h * f / BF16_FLOP_PER_S * 1e3
     rec["fp32_bound_ms"] = 2 * m * h * f / FP32_FLOP_PER_S * 1e3
-    rec.update(max_abs_err=worst, shape=[m, h, f])
-    records["ffn_bwd_dh1"].update(rec)
-    print(f"time ffn_bwd_dh1 at [{m}, {h}, {f}] bf16: {rec['ms']:.6f} ms on "
-          f"the card (CUDA graph), plain {rec['plain_ms']:.6f} ms, cuBLAS "
-          f"dy·W alone {rec['library_ms']:.6f} ms, bound "
-          f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}; the product on fp32 "
-          f"CUDA cores {rec['fp32_bound_ms']:.6f} ms)", flush=True)
-    del dy, w, am
-    torch.cuda.empty_cache()
+    rec["shape"] = [m, h, f]
+    return rec
 
 
 def serve_long(torch, np):
@@ -2086,12 +2191,13 @@ def params_checksum(torch, model) -> int:
 
 
 def dp_run(torch, cfg, weights, src, trg, mesh, *, keep=False,
-           steps=DP_STEPS, rows=None) -> dict:
+           steps=DP_STEPS, rows=None, after=None) -> dict:
     """`steps` steps of cfg from `weights` on this rank's rows of (src,
     trg) (parallel/mesh.py:batch_rows, or `rows`; every row without a
     mesh), one step generator as train_config's: losses, grad norms, the
     median step ms, the peak device memory, the parameters' checksum and,
-    with keep, the parameters on the host."""
+    with keep, the parameters on the host; `after(state, step, s, t, gen)`
+    adds its dict of results last."""
     from neurosync_trainer_lite_tpu_torch.parallel import batch_rows
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_train_step)
@@ -2119,6 +2225,8 @@ def dp_run(torch, cfg, weights, src, trg, mesh, *, keep=False,
            "checksum": params_checksum(torch, state.model), "rows": len(s)}
     if keep:
         out["params"] = [p.detach().cpu() for p in state.model.parameters()]
+    if after is not None:
+        out.update(after(state, step, s, t, gen))
     del state, step
     torch.cuda.empty_cache()
     return out
@@ -2163,10 +2271,12 @@ def dp_p1(torch, port: int) -> dict:
     return {"refs": refs, "group": got, "launches": launches}
 
 
-def dp_decode(torch, np, mesh) -> dict:
-    """(p3): MeshDecoder over two ranks against decode_chunks_batched on
-    one, the 30 s request's chunks at frame_size 128, 'auto' and 'pallas'
-    in bf16 and 'auto' in fp32, standalone and through
+def dp_decode(torch, np, mesh, tag: str = "(p3)",
+              fp32_limit: float = 1e-4) -> dict:
+    """(p3) and (t2): MeshDecoder over the mesh's ranks against
+    decode_chunks_batched on one, the 30 s request's chunks at frame_size
+    128, 'auto' and 'pallas' in bf16 (5% of max|out|) and 'auto' in fp32
+    (fp32_limit of max|out|), standalone and through
     process_audio_features. The launches of the MeshDecoder calls."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.data.processing import (
@@ -2215,20 +2325,21 @@ def dp_decode(torch, np, mesh) -> dict:
     out = {"launches": launches, "sums": {}}
     for label, (chunks, ref_chunks, ref_frames) in wants.items():
         got_chunks, got_frames = gots[label]
-        tol = 1e-4 if "fp32" in label else 0.05
+        tol = fp32_limit if "fp32" in label else 0.05
         for what, got, ref in (("chunks", got_chunks, ref_chunks),
                                ("frames", got_frames, ref_frames)):
             e, scale = float(np.abs(got - ref).max()), float(
                 np.abs(ref).max())
             check(got.shape == ref.shape and bool(np.isfinite(got).all())
                   and e <= tol * scale,
-                  f"(p3) MeshDecoder at dp 2, {label}, {what} "
+                  f"{tag} MeshDecoder at {mesh.shape}, {label}, {what} "
                   f"{tuple(got.shape)} (from {chunks.shape[0]} chunks): "
                   f"within {tol:g} of max|out| of one rank's decode (max abs "
-                  f"diff {e}, max|out| {scale})")
+                  f"diff {e}, max|out| {scale}: {e / scale:.3e} of it)")
         out["sums"][label] = [float(got_chunks.sum()), float(got_frames.sum())]
     check(all(w[0].shape[0] == serving_shape(cfg)[0] for w in wants.values()),
-          f"(p3) the 30 s request decodes as {serving_shape(cfg)[0]} chunks")
+          f"{tag} the 30 s request decodes as {serving_shape(cfg)[0]} "
+          f"chunks")
     del models
     torch.cuda.empty_cache()
     return out
@@ -2307,7 +2418,7 @@ def dp_planted(torch, np, base, weights, src, trg, mesh) -> dict:
     out = {"contiguous rows, accum 2": dp_run(
         torch, accum, weights, src, trg, mesh, steps=1, rows=contiguous)}
     plain_rows = step_mod.dropout_rows
-    step_mod.dropout_rows = lambda n, i: attn.dropout_rows(1, 0)
+    step_mod.dropout_rows = lambda n, i, *width: attn.dropout_rows(1, 0)
     try:
         out["masks over the local rows"] = dp_run(
             torch, base, weights, src, trg, mesh, steps=1)
@@ -2361,8 +2472,12 @@ def dp_worker(torch, np, part: str, rank: int, port: int, tmp: str) -> None:
     """One rank of the parallel phase: its results as JSON in tmp."""
     import os
 
-    result = (dp_p1(torch, port) if part == "p1"
-              else dp_p2(torch, np, port, rank, tmp))
+    if part == "p1":
+        result = dp_p1(torch, port)
+    elif part.startswith("t"):
+        result = tp_worker(torch, np, part, rank, port, tmp)
+    else:
+        result = dp_p2(torch, np, port, rank, tmp)
     with open(os.path.join(tmp, f"{part}_r{rank}.json"), "w") as f:
         json.dump(result, f)
 
@@ -2512,6 +2627,560 @@ def parallel(torch, np) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor parallelism
+
+
+def tp_kernel_checks(torch) -> tuple[dict, dict]:
+    """(t1): the kernels at a tp = 2 rank's shapes of the full-width model
+    (8 of the 16 heads, h = 64, so q and k are [B, T, 512]; 2048 of the
+    4096 FFN columns) against their plain versions, then timed beside their
+    bounds: K1 (bitwise) and the K4 forward (fua.fwd_limit) at [17 | 128,
+    128, 512], the K4 backward at [128, 128, 512] (its bound), K3 forward
+    and backward at [32, 8, 512, 64] (fa.kernel_limit), K2 at [16384, 1024,
+    2048] (kernel_limits, on ffn_bwd_wgmma_kernel). Checked at the other
+    shapes the phase's main path gives them, untimed: K1 at (t3)'s 32 rows
+    and (t4)'s 8 in bf16 and at (t2)'s 17 in fp32, the K4 forward and
+    backward at (t3)'s 32, K2 at (t3)'s M = 4096 and (t4)'s 1024. Returns
+    ({kernel: {label: timing}}, {kernel: max abs err})."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+    from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
+    from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+    from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
+    from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
+
+    cfg = Config()
+    n, hd, T = cfg.num_heads // 2, cfg.hidden_dim // cfg.num_heads, \
+        cfg.micro_batch_size
+    W = n * hd
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda",
+                           generator=gen).to(torch.bfloat16)
+
+    timed, err = {}, {}
+
+    def keep(name, label, rec, e):
+        timed.setdefault(name, {})[f"tp=2 rank, {label}"] = rec
+        err[name] = max(err.get(name, 0.0), e)
+        print_timed(name, f"tp=2 rank, {label}", rec)
+
+    tiled = rope_tables(T, hd, "cuda", tile=n)
+    tables = fua.make_tables(T, T, hd, n, "cuda")
+    for label, B, dtype in (("(t4) a data group's rows", TP_DP_BATCH // 2,
+                             torch.bfloat16),
+                            ("(t2) fp32 decode", serving_shape()[0],
+                             torch.float32)):
+        x = torch.randn(B, T, W, device="cuda", generator=gen).to(dtype)
+        out = rk.rope_rotate_cuda(x, *tiled)
+        torch.cuda.synchronize()
+        check(torch.equal(out, rk.rope_rotate_plain(x, *tiled)),
+              f"(t1) K1 rope_rotate [{B}, {T}, {W}], {n} heads, {label}, "
+              f"{dtype}, bitwise equal to the plain version")
+    for label, B in (("serving", serving_shape()[0]),
+                     ("(t3) batch", TP_BATCH), ("training", cfg.batch_size)):
+        x = randn(B, T, W)
+        out = rk.rope_rotate_cuda(x, *tiled)
+        torch.cuda.synchronize()
+        ref = rk.rope_rotate_plain(x, *tiled)
+        check(torch.equal(out, ref), f"(t1) K1 rope_rotate [{B}, {T}, {W}], "
+              f"{n} heads, bf16, bitwise equal to the plain version")
+        if label != "(t3) batch":
+            keep("rope_rotate", label, k1_timed(torch, x, tiled), 0.0)
+        q, k, v, do = (randn(B, T, W) for _ in range(4))
+        e = k4_forward_check(torch, fua, q, k, v, tables, n)
+        if label != "(t3) batch":
+            keep("fused_rope_attention", label,
+                 k4_fwd_timed(torch, q, k, v, tables, n), e)
+        if label == "serving":
+            continue
+        got = fua.fused_rope_attention_bwd_cuda(q, k, v, do, tables, n,
+                                                hd ** -0.5)
+        torch.cuda.synchronize()
+        want = fua.fused_rope_attention_bwd_plain(q, k, v, do, tables, n,
+                                                  hd ** -0.5)
+        e = 0.0
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            diff = (a.float() - b.float()).abs()
+            limit = 2.0 ** -7 * b.float().abs() + 1e-4 * b.float().abs().max()
+            e = max(e, diff.max().item())
+            check(bool((diff <= limit).all()),
+                  f"(t1) K4 backward {name} [{B}, {T}, {W}], {n} heads, bf16 "
+                  f"within 2^-7·|plain| + 1e-4·max|plain| (max abs err "
+                  f"{diff.max().item():.3e})")
+        if label == "training":
+            keep("fused_rope_attention_bwd", label,
+                 k4_bwd_timed(torch, q, k, v, do, tables, n), e)
+        del x, q, k, v, do, got, want
+
+    B, N, Tk, h = 32, n, 512, hd
+    q, k, v, do = (randn(B, N, Tk, h) for _ in range(4))
+    got = {"out": fa.flash_attention_cuda(q, k, v, h ** -0.5)}
+    got.update(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_cuda(
+        q, k, v, do, h ** -0.5)))
+    torch.cuda.synchronize()
+    want = {"out": fa.flash_attention_plain(q, k, v, h ** -0.5)}
+    want.update(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+        q, k, v, do, h ** -0.5)))
+    e = {}
+    for name, ref in want.items():
+        diff = (got[name].float() - ref.float()).abs()
+        kernel = "flash_attention" if name == "out" else "flash_attention_bwd"
+        e[kernel] = max(e.get(kernel, 0.0), diff.max().item())
+        check(bool((diff <= fa.kernel_limit(ref, torch.bfloat16)).all()),
+              f"(t1) K3 {name} [{B}, {N}, {Tk}, {h}] bf16 within the limit "
+              f"of the plain version (max abs err {diff.max().item():.3e})")
+    fwd, bwd = k3_timed(torch, q, k, v, do, "tp=2 rank, window 512")
+    for kernel, rec in (("flash_attention", fwd), ("flash_attention_bwd",
+                                                    bwd)):
+        timed.setdefault(kernel, {})["tp=2 rank, window 512"] = rec
+        err[kernel] = e[kernel]
+    del q, k, v, do, got, want
+
+    hh, f = cfg.hidden_dim, cfg.ffn_dim // 2
+    w = (torch.randn(hh, f, device="cuda", generator=gen) * 0.02).to(
+        torch.bfloat16)
+    for label, rows in (("training", cfg.batch_size),
+                        ("(t3) batch", TP_BATCH),
+                        ("(t4) a data group's rows", TP_DP_BATCH // 2)):
+        m = rows * T
+        dy = randn(m, hh)
+        am = torch.relu(torch.randn(m, f, device="cuda", generator=gen)
+                        - 0.3).to(torch.bfloat16)
+        out = ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=256 / 179)
+        torch.cuda.synchronize()
+        ref = ffn_bwd.ffn_bwd_dh1_plain(dy, w, am, scale=256 / 179)
+        e = 0.0
+        for name, a, b, limit in zip(("dh1", "db2", "db1"), out, ref,
+                                     ffn_bwd.kernel_limits(ref)):
+            diff = (a.float() - b.float()).abs()
+            e = max(e, diff.max().item())
+            check(bool((diff <= limit).all()),
+                  f"(t1) K2 {name} [{m}, {hh}, {f}] within the limit of the "
+                  f"plain version (max abs err {diff.max().item():.3e})")
+        err["ffn_bwd_dh1"] = max(err.get("ffn_bwd_dh1", 0.0), e)
+        names = profile_names(torch, lambda: ffn_bwd.ffn_bwd_dh1_cuda(
+            dy, w, am, scale=256 / 179), "ffn_bwd")
+        check(names and all("ffn_bwd_wgmma_kernel" in x for x in names),
+              f"(t1) K2 at [{m}, {hh}, {f}] runs ffn_bwd_wgmma_kernel: "
+              f"{names}")
+        if label == "training":
+            keep("ffn_bwd_dh1", label, k2_timed(torch, dy, w, am), e)
+        del dy, am, out, ref
+    del w
+    torch.cuda.empty_cache()
+    return timed, err
+
+
+def profile_names(torch, fn, prefix: str) -> list[str]:
+    """The profiler's names of the kernels fn launches that contain
+    prefix (two traced calls after an untraced one; CPU and CUDA traced,
+    as profile_once traces them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and prefix in e.key})
+
+
+def tp_checksums(torch, model) -> dict:
+    """The parameters' checksums (params_checksum's): the replicated leaves'
+    and all of them."""
+    from neurosync_trainer_lite_tpu_torch.parallel.mesh import param_spec
+
+    total = rep = 0
+    for key, p in model.named_parameters():
+        c = int(p.detach().view(torch.int32).to(torch.int64).sum())
+        total += c
+        if param_spec(key) is None:
+            rep += c
+    return {"replicated": rep, "all": total}
+
+
+def tp_timed_step(torch, mesh):
+    """`after` for dp_run: one more step with every 'model' all-reduce
+    timed (the card synchronised around each): the step's wall ms, the
+    all-reduces' ms and their count; then the checksums."""
+    import torch.distributed as dist
+
+    def after(state, step, s, t, gen):
+        plain = dist.all_reduce
+        spent = []
+
+        def timed_reduce(tensor, *args, group=None, **kw):
+            if group is not mesh.model_group:
+                return plain(tensor, *args, group=group, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = plain(tensor, *args, group=group, **kw)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        dist.all_reduce = timed_reduce
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss, _ = step(state, s, t, gen)
+            float(loss)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            dist.all_reduce = plain
+        return {"timed_step_ms": wall, "reduce_ms": sum(spent),
+                "reduces": len(spent), **tp_checksums(torch, state.model)}
+
+    return after
+
+
+def tp_run(torch, cfg, weights, src, trg, mesh, *, fused: bool, steps,
+           timed: bool = False) -> dict:
+    """dp_run of cfg (seq2seq._ffn through K2 where fused) with the kernel
+    launches and 'model' all-reduces of its steps counted from zero; with
+    timed, tp_timed_step after them (not counted)."""
+    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd, kernels
+    from neurosync_trainer_lite_tpu_torch.parallel import tensor
+
+    default = seq2seq._ffn
+    if fused:
+        seq2seq._ffn = ffn_bwd.ffn_fused
+    counted = {}
+
+    def after(state, step, s, t, gen):
+        counted.update(launches=dict(kernels.LAUNCHES),
+                       collectives=dict(tensor.COLLECTIVES))
+        return (tp_timed_step(torch, mesh)(state, step, s, t, gen)
+                if timed else tp_checksums(torch, state.model))
+
+    kernels.reset_launches()
+    tensor.reset_collectives()
+    try:
+        out = dp_run(torch, cfg, weights, src, trg, mesh, steps=steps,
+                     after=after)
+    finally:
+        seq2seq._ffn = default
+    return {**out, **counted}
+
+
+def tp_refs(torch) -> dict:
+    """One process, no group: (t3)'s configurations at batch TP_BATCH and
+    (t4)'s at TP_DP_BATCH, from the seeded weights and rows every rank
+    draws (dp_weights)."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+
+    refs = {}
+    for batch, steps in ((TP_BATCH, TP_STEPS), (TP_DP_BATCH, 1)):
+        base = Config(batch_size=batch)
+        weights, src, trg = dp_weights(torch, base)
+        for label, (kw, fused) in TP_CONFIGS.items():
+            if batch == TP_DP_BATCH and label != TP_DP_CONFIG:
+                continue
+            refs[f"{label}, batch {batch}"] = tp_run(
+                torch, base.replace(**kw), weights, src, trg, None,
+                fused=fused, steps=steps)
+        del weights, src, trg
+        torch.cuda.empty_cache()
+    return refs
+
+
+def tp_planted(torch, base, weights, src, trg, mesh) -> dict:
+    """One step of (t3)'s dropout-0.3 run with each fault planted that the
+    first-step gate must catch: every column-parallel backward (the
+    linears' and the lean FFN cores') without its all-reduce over 'model'
+    (each rank keeps its own partial dx), and every mask drawn at the rank's local width instead of its
+    block of the global width's draw."""
+    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    from neurosync_trainer_lite_tpu_torch.ops import attention as attn
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+    from neurosync_trainer_lite_tpu_torch.parallel import tensor
+    from neurosync_trainer_lite_tpu_torch.training import step as step_mod
+
+    kw, fused = TP_CONFIGS[TP_PLANTED_CONFIG]
+    cfg = base.replace(**kw)
+    out = {}
+    sound = tensor.reduce_model_
+    callers = (attn, seq2seq, ffn_bwd)   # _linear and the lean FFN cores
+
+    def no_backward_reduce(t, mesh, kind):
+        return t if kind == "backward" else sound(t, mesh, kind)
+
+    for module in callers:
+        module.reduce_model_ = no_backward_reduce
+    try:
+        out["column backward without its all-reduce"] = tp_run(
+            torch, cfg, weights, src, trg, mesh, fused=fused, steps=1)
+    finally:
+        for module in callers:
+            module.reduce_model_ = sound
+    plain_rows = step_mod.dropout_rows
+    step_mod.dropout_rows = lambda n, i, nw, j: attn.dropout_rows(n, i)
+    try:
+        out["masks at the local width"] = tp_run(
+            torch, cfg, weights, src, trg, mesh, fused=fused, steps=1)
+    finally:
+        step_mod.dropout_rows = plain_rows
+    return out
+
+
+def tp_train_model(torch, np, tmp: str, rank: int, mesh) -> dict:
+    """(t5) on a rank of two: train_model at tp 2 on the copy of
+    dataset/data in tmp, batch TP_BATCH, TP_LOOP_STEPS steps, one epoch
+    with a checkpoint, validating on dataset/test_set; then the final
+    parameters gathered to rank 0 (collective)."""
+    import os
+
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.parallel import distributed
+    from neurosync_trainer_lite_tpu_torch.training.loop import train_model
+
+    test_set = REPO / "dataset" / "test_set"
+    out = os.path.join(tmp, "t5")
+    cfg = Config(root_dir=os.path.join(tmp, "data"), n_epochs=1, tp=2,
+                 batch_size=TP_BATCH, max_steps_per_epoch=TP_LOOP_STEPS,
+                 audio_path=str(test_set / "audio.wav"),
+                 ground_truth_path=str(test_set / "testset.csv"),
+                 model_path=os.path.join(out, "model.pth"),
+                 checkpoint_path=os.path.join(out, "checkpoints",
+                                              "checkpoint"),
+                 plots_dir=os.path.join(out, "plots"))
+    history = {}
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    state, steps = train_model(cfg, device="cuda", history_out=history)
+    launches = dict(kernels.LAUNCHES)
+    full = distributed.gather_state_dict(state.model, mesh)
+    losses = history["train_losses"]
+    check(steps == len(losses) == TP_LOOP_STEPS
+          and all(math.isfinite(x) for x in losses + history["val_losses"]
+                  + history["grad_norms"]),
+          f"(t5) rank {rank}: train_model at tp 2, {steps} steps, every loss "
+          f"and grad norm finite")
+    result = {"launches": launches, "steps": steps,
+              "peak": torch.cuda.max_memory_allocated(),
+              **{k: history[k] for k in ("train_losses", "val_losses",
+                                          "grad_norms", "epoch_seconds",
+                                          "epoch_samples")}}
+    if full is not None:
+        exported = torch.load(cfg.model_path, weights_only=True)
+        check(list(exported) == list(full["model"]) and all(
+                  torch.equal(exported[k], v)
+                  for k, v in full["model"].items()),
+              f"(t5) rank 0's model.pth holds the parameters gathered over "
+              f"'model', bit for bit ({len(exported)} leaves)")
+    del state
+    torch.cuda.empty_cache()
+    return {**result, "cfg": cfg.to_dict()}
+
+
+def tp_resume_at_tp1(torch, np, cfg_dict: dict) -> dict:
+    """(t5), rank 0 alone after the group is gone: model.pth served on
+    test_set/audio.wav, then train_model resumed at tp 1 from the tp = 2
+    checkpoint for a second epoch."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.training.loop import train_model
+    from neurosync_trainer_lite_tpu_torch.utils.weights import load_model
+
+    cfg = Config.from_dict(cfg_dict)
+    model = load_model(cfg.model_path, Config(), device="cuda")
+    frames = generate_facial_data_from_bytes(
+        (REPO / "dataset" / "test_set" / "audio.wav").read_bytes(), model,
+        Config())
+    check(isinstance(frames, np.ndarray) and frames.ndim == 2
+          and frames.shape[1] == 61 and bool(np.isfinite(frames).all()),
+          f"(t5) the tp = 2 run's model.pth serves test_set/audio.wav: "
+          f"{frames.shape} finite frames")
+    del model
+    history = {}
+    _, total = train_model(cfg.replace(tp=1, mode="resume", n_epochs=2),
+                           device="cuda", history_out=history)
+    losses = history["train_losses"]
+    check(total == 2 * TP_LOOP_STEPS and len(losses) == TP_LOOP_STEPS
+          and all(math.isfinite(x) for x in losses),
+          f"(t5) resumed at tp 1 from the tp = 2 checkpoint: batch_step "
+          f"continues to {total}, losses {losses}")
+    return {"resumed_losses": losses, "total": total}
+
+
+def tp_worker(torch, np, part: str, rank: int, port: int, tmp: str) -> dict:
+    """One process of the tensor phase: (t1) alone, or a rank of (t2),
+    (t3) and (t5) on a (1, 2) mesh or of (t4) on a (2, 2) one, over gloo
+    on the one card."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.parallel import (
+        distributed, make_mesh)
+
+    if part == "t1":
+        timed, err = tp_kernel_checks(torch)
+        return {"timed": timed, "err": err}
+    world = 2 if part == "t235" else 4
+    distributed.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                       backend="gloo",
+                                       timeout_s=DP_GROUP_TIMEOUT)
+    out = {}
+    try:
+        batch = TP_BATCH if part == "t235" else TP_DP_BATCH
+        base = Config(batch_size=batch, tp=2)
+        mesh = make_mesh(base)
+        weights, src, trg = dp_weights(torch, base.replace(tp=1))
+        if part == "t4":
+            kw, fused = TP_CONFIGS[TP_DP_CONFIG]
+            out["runs"] = {TP_DP_CONFIG: tp_run(
+                torch, base.replace(**kw), weights, src, trg, mesh,
+                fused=fused, steps=1)}
+            return out
+        out["runs"] = {label: tp_run(torch, base.replace(**kw), weights, src,
+                                     trg, mesh, fused=fused, steps=TP_STEPS,
+                                     timed=True)
+                       for label, (kw, fused) in TP_CONFIGS.items()}
+        out["planted"] = tp_planted(torch, base, weights, src, trg, mesh)
+        del weights, src, trg
+        torch.cuda.empty_cache()
+        out["decode"] = dp_decode(torch, np, mesh, "(t2)",
+                                  TP_DECODE_FP32_LIMIT)
+        out["train_model"] = tp_train_model(torch, np, tmp, rank, mesh)
+    finally:
+        distributed.destroy()
+    if rank == 0:
+        out["train_model"].update(tp_resume_at_tp1(
+            torch, np, out["train_model"]["cfg"]))
+    return out
+
+
+def tensor(torch, np) -> tuple[dict, dict, dict]:
+    """Phase 13: tensor parallelism, every process a subprocess with a
+    deadline (--parallel-worker): (t1) the kernels at a tp = 2 rank's
+    shapes, in a process of its own (a fresh profiler: late in this
+    process's run the profiler no longer saw the kernels, so K2's symbol
+    check could not pass); then ranks over gloo on the one card: (t2)
+    MeshDecoder, (t3) the step and (t5) train_model on a (1, 2) mesh, (t4)
+    a (2, 2) step; the one-process references in this process. Returns
+    (the main path runs' launch counts by run, (t1)'s timings, (t1)'s
+    errors)."""
+    import os
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    print("tensor: the ranks share the one card and reduce through the host "
+          "under gloo, so (t2)-(t5) measure correctness and the reduction's "
+          "cost, not scaling", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        (kernel_run,) = dp_spawn("t1", 1, tmp)
+        refs = tp_refs(torch)
+        shutil.copytree(REPO / "dataset" / "data", os.path.join(tmp, "data"),
+                        ignore=shutil.ignore_patterns("audio_features.csv"))
+        t235 = dp_spawn("t235", 2, tmp)
+        t4 = dp_spawn("t4", 4, tmp)
+
+    ranks = {"(t3)": (t235, TP_BATCH), "(t4)": (t4, TP_DP_BATCH)}
+    # every first-step gap, before the checks stop at one
+    gaps = {}
+    for tag, (per_rank, batch) in ranks.items():
+        for label, got in per_rank[0]["runs"].items():
+            gaps[tag, label] = dp_first_step_gaps(
+                got, refs[f"{label}, batch {batch}"])
+    for fault, got in t235[0]["planted"].items():
+        gaps["(t3) planted fault", fault] = dp_first_step_gaps(
+            got, refs[f"{TP_PLANTED_CONFIG}, batch {TP_BATCH}"])
+    for (tag, label), (gl, gn) in gaps.items():
+        print(f"{tag} {label}: the first step against one process: loss "
+              f"{gl:.3e}, grad norm {gn:.3e} relative", flush=True)
+
+    expected_per_step = {label: TP_LAUNCHES[label] for label in TP_CONFIGS}
+    for tag, (per_rank, batch) in ranks.items():
+        for label in per_rank[0]["runs"]:
+            runs = [r["runs"][label] for r in per_rank]
+            ref = refs[f"{label}, batch {batch}"]
+            steps = len(runs[0]["losses"])
+            check(all(r["losses"] == runs[0]["losses"]
+                      and r["norms"] == runs[0]["norms"]
+                      and r["replicated"] == runs[0]["replicated"]
+                      for r in runs),
+                  f"{tag} {label}: every rank's losses, grad norms and "
+                  f"replicated leaves bitwise equal after {steps} step(s)")
+            for r, run in enumerate(runs):
+                want = {k: steps * v for k, v in
+                        expected_per_step[label].items()}
+                check(run["launches"] == want,
+                      f"{tag} {label}, rank {r}: kernel launches of {steps} "
+                      f"step(s) {run['launches']} == {want}")
+                want = {k: steps * v for k, v in TP_COLLECTIVES.items()}
+                check(run["collectives"] == want,
+                      f"{tag} {label}, rank {r}: 'model' all-reduces of "
+                      f"{steps} step(s) {run['collectives']} == {want}")
+            gl, gn = gaps[tag, label]
+            check(gl <= TP_FIRST_STEP_LIMITS[0]
+                  and gn <= TP_FIRST_STEP_LIMITS[1],
+                  f"{tag} {label}: the first step against one process on "
+                  f"the same weights and rows: loss within {gl:.3e}, grad "
+                  f"norm within {gn:.3e} relative (limits "
+                  f"{TP_FIRST_STEP_LIMITS}; losses {runs[0]['losses']} vs "
+                  f"{ref['losses']})")
+            if tag == "(t3)":
+                a, b = runs
+                print(f"(t3) {label}: {a['rows']} rows on each rank, step "
+                      f"median {a['step_ms']:.3f} / {b['step_ms']:.3f} ms "
+                      f"(ranks 0 / 1, sharing the card; one process "
+                      f"{ref['step_ms']:.3f}); a timed step "
+                      f"{a['timed_step_ms']:.3f} ms of which the {a['reduces']} "
+                      f"'model' all-reduces over gloo {a['reduce_ms']:.3f} ms "
+                      f"({100 * a['reduce_ms'] / a['timed_step_ms']:.1f}%); "
+                      f"peak device memory {a['peak']} / {b['peak']} bytes "
+                      f"(one process {ref['peak']})", flush=True)
+    for fault in t235[0]["planted"]:
+        gl, gn = gaps["(t3) planted fault", fault]
+        check(gl > TP_FIRST_STEP_LIMITS[0] or gn > TP_FIRST_STEP_LIMITS[1],
+              f"(t3) planted fault, {fault}: the first-step gate catches it "
+              f"(loss {gl:.3e}, grad norm {gn:.3e} relative; limits "
+              f"{TP_FIRST_STEP_LIMITS})")
+    shards = [r["runs"][TP_DP_CONFIG]["all"] for r in t4]
+    check(all(shards[r] == shards[r % 2] for r in range(4)),
+          "(t4) the two ranks of each model index hold the same shard, "
+          "bitwise")
+    check(t235[0]["decode"]["sums"] == t235[1]["decode"]["sums"],
+          "(t2) both ranks hold the same decoded frames")
+    t0, t1 = (r["train_model"] for r in t235)
+    check(all(t0[k] == t1[k] for k in ("train_losses", "val_losses",
+                                        "grad_norms", "steps")),
+          f"(t5) the two ranks' histories are equal: "
+          f"{len(t0['train_losses'])} train losses, "
+          f"{len(t0['val_losses'])} validation losses")
+    for sec, n in zip(t0["epoch_seconds"], t0["epoch_samples"]):
+        print(f"(t5) the epoch at tp 2: {sec:.3f} s, {n} samples, "
+              f"{n / sec:.1f} samples/s as the loop counts them; peak device "
+              f"memory {t0['peak']} / {t1['peak']} bytes (ranks 0 / 1)",
+              flush=True)
+
+    def summed(counts):
+        return dict(sum((Counter(c) for c in counts), Counter()))
+
+    paths = {"tensor (t2)": summed(r["decode"]["launches"] for r in t235),
+             "tensor (t3)": summed(run["launches"] for r in t235
+                                   for run in r["runs"].values()),
+             "tensor (t4)": summed(run["launches"] for r in t4
+                                   for run in r["runs"].values()),
+             "tensor (t5)": summed(r["train_model"]["launches"]
+                                   for r in t235)}
+    for path, counts in paths.items():
+        check(counts.get("rope_rotate", 0) > 0,
+              f"{path} launched K1: {counts}")
+    return paths, kernel_run["timed"], kernel_run["err"]
+
+
+
 def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
     """The card's busy share and top kernels of one call (profiler on).
     Returns the call's device ms by kernel name."""
@@ -2544,10 +3213,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("serve-s2", "live", "parallel"),
-        help="build the kernels and run phase 7b (serve-s2), 7c (live) or "
-             "12 (parallel) alone, printing no result line: to time the "
-             "(s2) request or the live run of two trees side by side")
+        "--only", choices=("serve-s2", "live", "parallel", "tensor"),
+        help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
+             "(parallel) or 13 (tensor) alone, printing no result line: to "
+             "time the (s2) request or the live run of two trees side by "
+             "side")
     parser.add_argument("--parallel-worker", nargs=4,
                         metavar=("PART", "RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
@@ -2579,8 +3249,8 @@ def main() -> int:
         print_ptxas_summary(log)
     sass_counts(kernels)
     if args.only:
-        {"serve-s2": serve_long, "live": live,
-         "parallel": parallel}[args.only](torch, np)
+        {"serve-s2": serve_long, "live": live, "parallel": parallel,
+         "tensor": tensor}[args.only](torch, np)
         print(card, flush=True)
         return 0
 
@@ -2629,6 +3299,12 @@ def main() -> int:
     paths.update(train_paths)
     train_entry_point(torch, np, step_a)
     paths.update(parallel(torch, np))
+    tp_paths, tp_timed, tp_err = tensor(torch, np)
+    paths.update(tp_paths)
+    for name, by in tp_timed.items():
+        records[name].setdefault("by_shape", {}).update(by)
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                           tp_err[name])
     for counts in paths.values():   # the K3 backward's two kernels
         check(counts.get("flash_attention_bwd_dq", 0)
               == counts.get("flash_attention_bwd_dkdv", 0),

@@ -6,11 +6,12 @@ the geometry (sr, input_dim, output_dim, frame_size, overlap, hidden_dim,
 n_layers, num_heads), use_amp and attention_impl. The training step
 (training/step.py) also reads dropout, learning_rate, weight_decay, n_epochs,
 warmup_epochs, grad_clip, delta, w1-w4, zero_penalty_weight, loss_variant,
-smoothness_annealing and grad_accum_steps; dp is the size of the 'data'
-axis of the rank mesh (parallel/mesh.py: -1 takes every rank), and
-batch_size must split into grad_accum_steps · dp equal shares
-(check_batch_split). tp != 1 raises: tensor parallelism is not ported
-yet. The model reads remat, remat_scope, remat_layers
+smoothness_annealing and grad_accum_steps; dp and tp are the sizes of
+the 'data' and 'model' axes of the rank mesh (parallel/mesh.py: dp = -1
+takes every rank over tp), batch_size must split into grad_accum_steps ·
+dp equal shares (check_batch_split), and a rank of the 'model' axis holds
+whole heads and an equal block of the FFN (check_tp_split). The model
+reads remat, remat_scope, remat_layers
 and remat_policy (per-layer torch.utils.checkpoint, models/seq2seq.py);
 unroll_residents is semantics only there. The other knobs (the data
 loop's, prng_impl, auto_remat, async_checkpoint, ...) are kept for that
@@ -138,6 +139,17 @@ def check_batch_split(batch_size: int, accum: int, dp: int) -> None:
     if batch_size % (accum * dp):
         raise ValueError(f"batch_size {batch_size} must be divisible by "
                          f"grad_accum_steps * dp = {accum} * {dp}")
+
+
+def check_tp_split(cfg: Config, tp: int) -> None:
+    """A rank of the 'model' axis holds num_heads / tp whole heads and
+    ffn_dim / tp columns of the FFN. One stated difference from JAX, whose
+    GSPMD would split a head across devices: any other layout raises."""
+    for what, n in (("num_heads", cfg.num_heads), ("ffn_dim", cfg.ffn_dim)):
+        if n % tp:
+            raise ValueError(f"{what} {n} is not a multiple of tp {tp}: a "
+                             f"rank of the 'model' axis holds whole heads "
+                             f"and an equal block of the FFN")
 
 
 def tiny_config(**kw) -> Config:

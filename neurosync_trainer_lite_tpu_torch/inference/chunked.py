@@ -11,10 +11,11 @@ the true chunk count: the JAX package pads the batch to a power of two to
 bound XLA recompiles, which eager PyTorch does not have. The serial blend
 runs on the host in numpy.
 
-MeshDecoder decodes the chunks over the rank mesh's 'data' axis
-(parallel/mesh.py): SPMD, every rank calls it with the same chunks, as
-every JAX process must in a multi-process job; each decodes its rows and
-an all-gather hands every rank the whole batch.
+MeshDecoder decodes the chunks over the rank mesh (parallel/mesh.py):
+SPMD, every rank calls it with the same chunks, as every JAX process must
+in a multi-process job. Each 'model' group decodes its 'data' rows with
+its shard of the model (the Megatron linears sum over 'model'), and an
+all-gather over 'data' hands every rank the whole batch.
 """
 
 from __future__ import annotations
@@ -24,8 +25,13 @@ import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.data.processing import BLENDSHAPE_SCALE
+from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
 from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
     all_gather_rows,
+)
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
+    model_sharded,
+    shard_state_dict,
 )
 from neurosync_trainer_lite_tpu_torch.utils.device import module_device
 
@@ -104,22 +110,30 @@ def decode_chunks_batched(model, chunks: np.ndarray, cfg: Config) -> np.ndarray:
 
 
 class MeshDecoder:
-    """Serving decode over the rank mesh's 'data' axis, with
-    decode_chunks_batched's signature so it drops into
-    process_audio_features:
+    """Serving decode over the rank mesh, with decode_chunks_batched's
+    signature so it drops into process_audio_features:
 
         mesh = make_mesh(cfg)
         dec = MeshDecoder(model, cfg, mesh)
         frames = process_audio_features(feats, model, cfg, decode_batched=dec)
 
-    SPMD: every rank of the mesh calls it with the same chunks. The batch
-    is padded with zero chunks to a multiple of dp (no power-of-two
-    bucket: the port decodes at the true chunk count), rank r decodes rows
-    [r·m, (r+1)·m), and an all-gather returns the whole [:n] to every rank.
-    The model argument of __call__ is ignored (the constructor's is used),
-    as the JAX MeshDecoder ignores its params argument."""
+    SPMD: every rank of the mesh calls it with the same chunks. The
+    constructor takes the full model and, where the mesh has a 'model'
+    axis, keeps this rank's shard of it (parallel/mesh.py:
+    shard_state_dict), as the JAX MeshDecoder places its params once. The
+    batch is padded with zero chunks to a multiple of dp (no power-of-two
+    bucket: the port decodes at the true chunk count), the 'model' group of
+    data index r decodes rows [r·m, (r+1)·m), and an all-gather over
+    'data' returns the whole [:n] to every rank. The model argument of
+    __call__ is ignored (the constructor's is used), as the JAX
+    MeshDecoder ignores its params argument."""
 
     def __init__(self, model, cfg: Config, mesh):
+        if model_sharded(mesh):
+            shard = Seq2Seq(cfg, module_device(model), mesh)
+            shard.load_state_dict(shard_state_dict(model.state_dict(), cfg,
+                                                   mesh), strict=True)
+            model = shard.eval()
         self.model, self.cfg, self.mesh = model, cfg, mesh
 
     @torch.inference_mode()

@@ -28,6 +28,16 @@ dropout on; the forward draws one seed from the generator and splits it
 into per-layer and per-site seeds (ops/attention.py:split_seed) in the tree
 shape of the JAX keys. Without a generator, or in eval mode, the forward is
 the eval forward.
+
+Tensor parallelism (Seq2Seq(cfg, device, mesh) with mesh.tp > 1): each
+attention holds num_heads / tp heads (q, k, v [H/tp, H], out [H, H/tp])
+and each FFN ffn_dim / tp hidden units (linear1 [F/tp, H], linear2
+[H, F/tp]), as Megatron column- and row-parallel linears
+(ops/attention.py:_linear, parallel/tensor.py); the rest is replicated.
+The parameter names stay the reference's, so a rank's state dict is
+parallel/mesh.py:shard_state_dict of the full one. The lean FFN
+cores sum their second product's fp32 partials over 'model' before the
+bias and the rounding, and their dx partials before dx's rounding.
 """
 
 from __future__ import annotations
@@ -55,21 +65,37 @@ from neurosync_trainer_lite_tpu_torch.ops.attention import (
     split_or_none,
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_embed
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
+    model_sharded,
+    param_spec,
+    shard_tensor,
+)
+from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
 
 _LN_EPS = 1e-5
 
 
 class Linear(nn.Module):
-    """weight [out, in] and bias [out], applied with one rounding (_linear)."""
+    """weight [out, in] and bias [out], applied with one rounding (_linear);
+    under a mesh that shards the model, this rank's block of a 'column' or
+    'row' parallel linear."""
 
-    def __init__(self, d_in: int, d_out: int, device):
+    def __init__(self, d_in: int, d_out: int, device, mesh=None,
+                 kind: str | None = None):
         super().__init__()
+        self.mesh, self.kind = (mesh, kind) if model_sharded(mesh) else (None,
+                                                                    None)
         self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
         self.bias = nn.Parameter(torch.empty(d_out, device=device))
 
     def forward(self, x):
-        return _linear(x, self.weight, self.bias)
+        return _linear(x, self.weight, self.bias, self.mesh, self.kind)
+
+
+def _local(n: int, mesh) -> int:
+    """This rank's share of a width sharded over 'model'."""
+    return n // mesh.tp if model_sharded(mesh) else n
 
 
 class LayerNorm(nn.Module):
@@ -122,14 +148,19 @@ def layer_norm(x, weight, bias):
 
 
 class MultiHeadAttention(nn.Module):
+    """num_heads heads over the width hidden; under a mesh that shards the
+    model, this rank's num_heads / tp of them."""
+
     def __init__(self, hidden: int, num_heads: int, impl: str, device,
-                 rate: float = 0.0):
+                 rate: float = 0.0, mesh=None):
         super().__init__()
-        self.num_heads, self.impl, self.rate = num_heads, impl, rate
-        self.q_linear = Linear(hidden, hidden, device)
-        self.k_linear = Linear(hidden, hidden, device)
-        self.v_linear = Linear(hidden, hidden, device)
-        self.out_linear = Linear(hidden, hidden, device)
+        local = _local(hidden, mesh)
+        self.num_heads, self.impl, self.rate = (_local(num_heads, mesh), impl,
+                                                rate)
+        self.q_linear = Linear(hidden, local, device, mesh, "column")
+        self.k_linear = Linear(hidden, local, device, mesh, "column")
+        self.v_linear = Linear(hidden, local, device, mesh, "column")
+        self.out_linear = Linear(local, hidden, device, mesh, "row")
 
     def forward(self, query, key, value, seed=None):
         return multi_head_attention(self, query, key, value,
@@ -142,19 +173,22 @@ class _FfnLeanCore(torch.autograd.Function):
     """bf16 linear → relu → dropout → linear that keeps only x and the
     masked activation am for the backward: where kept, am > 0 ⟺ h1 > 0, and
     dropped elements get a zero cotangent either way, so the mask is not a
-    residual. The weight gradients stay fp32 (JAX's einsums)."""
+    residual. The weight gradients stay fp32 (JAX's einsums). Under a mesh
+    that shards the model (w1 [F/tp, H], w2 [H, F/tp]) the fp32 partials
+    of am·w2ᵀ and of dx are summed over 'model' before their roundings."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, keep, scale):
+    def forward(ctx, x, w1, b1, w2, b2, keep, scale, mesh=None):
         x2 = x.reshape(-1, x.shape[-1])
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
         h1 = (_mm_f32(x2, w1c.t()) + b1.float()).to(x.dtype)
         am = torch.relu(h1)
         if keep is not None:
             am = torch.where(keep.reshape(am.shape), am * scale, 0)
-        y = (_mm_f32(am, w2c.t()) + b2.float()).to(x.dtype)
+        y = reduce_model_(_mm_f32(am, w2c.t()), mesh, "forward")
+        y = (y + b2.float()).to(x.dtype)
         ctx.save_for_backward(x2, am, w1c, w2c)
-        ctx.scale, ctx.shape = scale, x.shape
+        ctx.scale, ctx.shape, ctx.mesh = scale, x.shape, mesh
         return y.reshape(*x.shape[:-1], w2.shape[0])
 
     @staticmethod
@@ -167,8 +201,9 @@ class _FfnLeanCore(torch.autograd.Function):
         dh1 = torch.where(am > 0, dam * ctx.scale, 0)
         db1 = dh1.float().sum(0)
         dw1 = _mm_f32(dh1.t(), x2)
-        dx = _mm_f32(dh1, w1c).to(dy.dtype)
-        return dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None
+        dx = reduce_model_(_mm_f32(dh1, w1c), ctx.mesh, "backward")
+        return (dx.to(dy.dtype).reshape(ctx.shape), dw1, db1, dw2, db2, None,
+                None, None)
 
 
 def lean_ffn_mask(module, x, seed):
@@ -176,7 +211,8 @@ def lean_ffn_mask(module, x, seed):
     runs: the lean cores take bf16 training only, and rate ≈ 1.0 (which drops
     everything) goes plain. keep is None at rate 0; otherwise it is the plain
     path's draw (same seed, shape and threshold), so every path drops the
-    same elements. scale is the unrounded 256 / (256 - q)."""
+    same elements; under tensor parallelism this rank's columns of the
+    global hidden width's draw. scale is the unrounded 256 / (256 - q)."""
     if x.dtype != torch.bfloat16 or seed is None:
         return None
     q = dropout_mask_q(module.rate)
@@ -185,14 +221,15 @@ def lean_ffn_mask(module, x, seed):
     if q <= 0:
         return None, 1.0
     keep = dropout_keep(seed, (*x.shape[:-1], module.linear1.weight.shape[0]),
-                        q, x.device)
+                        q, x.device, split_dim=-1)
     return keep, 256.0 / (256 - q)
 
 
 def ffn_plain(module, x, seed):
     """linear → relu → dropout → linear, plain autograd."""
     h = torch.relu(module.linear1(x))
-    return module.linear2(dropout(h, module.rate, seed, seed is not None))
+    return module.linear2(dropout(h, module.rate, seed, seed is not None,
+                                  split_dim=-1))
 
 
 def _ffn(module, x, seed=None):
@@ -207,28 +244,34 @@ def _ffn(module, x, seed=None):
     keep, scale = lean
     return _FfnLeanCore.apply(x, module.linear1.weight, module.linear1.bias,
                               module.linear2.weight, module.linear2.bias, keep,
-                              _bf16_value(scale))
+                              _bf16_value(scale), module.linear2.mesh)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, hidden: int, ffn_dim: int, device, rate: float = 0.0):
+    """linear1 [ffn_dim, hidden] → relu → linear2; under a mesh that shards
+    the model, this rank's ffn_dim / tp hidden units."""
+
+    def __init__(self, hidden: int, ffn_dim: int, device, rate: float = 0.0,
+                 mesh=None):
         super().__init__()
         self.rate = rate
-        self.linear1 = Linear(hidden, ffn_dim, device)
-        self.linear2 = Linear(ffn_dim, hidden, device)
+        local = _local(ffn_dim, mesh)
+        self.linear1 = Linear(hidden, local, device, mesh, "column")
+        self.linear2 = Linear(local, hidden, device, mesh, "row")
 
     def forward(self, x, seed=None):
         return _ffn(self, x, seed)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: Config, device):
+    def __init__(self, cfg: Config, device, mesh=None):
         super().__init__()
         H, rate = cfg.hidden_dim, cfg.dropout
         self.rate = rate
         self.self_attn = MultiHeadAttention(H, cfg.num_heads,
-                                            cfg.attention_impl, device, rate)
-        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate)
+                                            cfg.attention_impl, device, rate,
+                                            mesh)
+        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate, mesh)
         self.norm1 = LayerNorm(H, device)
         self.norm2 = LayerNorm(H, device)
 
@@ -242,16 +285,17 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, cfg: Config, device):
+    def __init__(self, cfg: Config, device, mesh=None):
         super().__init__()
         H, rate = cfg.hidden_dim, cfg.dropout
         self.rate = rate
         self.self_attn = MultiHeadAttention(H, cfg.num_heads,
-                                            cfg.attention_impl, device, rate)
+                                            cfg.attention_impl, device, rate,
+                                            mesh)
         self.multihead_attn = MultiHeadAttention(H, cfg.num_heads,
                                                  cfg.attention_impl, device,
-                                                 rate)
-        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate)
+                                                 rate, mesh)
+        self.ffn = FeedForward(H, cfg.ffn_dim, device, rate, mesh)
         self.norm1 = LayerNorm(H, device)
         self.norm2 = LayerNorm(H, device)
         self.norm3 = LayerNorm(H, device)
@@ -314,12 +358,12 @@ def _run_layers(layers, x, seeds, cfg: Config, scope: str, *memory):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: Config, device):
+    def __init__(self, cfg: Config, device, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.embedding = Linear(cfg.input_dim, cfg.hidden_dim, device)
         self.transformer_encoder = nn.ModuleList(
-            EncoderLayer(cfg, device) for _ in range(cfg.n_layers))
+            EncoderLayer(cfg, device, mesh) for _ in range(cfg.n_layers))
         self.layer_norm = LayerNorm(cfg.hidden_dim, device)
 
     def forward(self, x, seed=None):
@@ -331,11 +375,11 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: Config, device):
+    def __init__(self, cfg: Config, device, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.transformer_decoder = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, device, mesh) for _ in range(cfg.n_layers))
         self.fc_output = Linear(cfg.hidden_dim, cfg.output_dim, device)
         self.layer_norm = LayerNorm(cfg.hidden_dim, device)
 
@@ -351,15 +395,17 @@ class Seq2Seq(nn.Module):
     """src [B, T, input_dim] → predictions [B, T, output_dim] (fp32).
 
     The weights start uninitialised: fill them with init_seq2seq or a
-    state dict (utils/weights.py).
+    state dict (utils/weights.py). mesh: a rank mesh whose 'model' axis
+    shards the model (this rank's shard; None, or tp = 1, builds it whole).
     """
 
-    def __init__(self, cfg: Config, device=None):
+    def __init__(self, cfg: Config, device=None, mesh=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        self.encoder = Encoder(cfg, device)
-        self.decoder = Decoder(cfg, device)
+        self.mesh = mesh if model_sharded(mesh) else None
+        self.encoder = Encoder(cfg, device, self.mesh)
+        self.decoder = Decoder(cfg, device, self.mesh)
 
     def forward(self, src, generator: torch.Generator | None = None):
         """In train mode with a generator, dropout is on: the forward draws
@@ -372,14 +418,25 @@ class Seq2Seq(nn.Module):
 
 
 @torch.no_grad()
-def init_seq2seq(cfg: Config, generator: torch.Generator,
-                 device=None) -> Seq2Seq:
+def init_seq2seq(cfg: Config, generator: torch.Generator, device=None,
+                 mesh=None) -> Seq2Seq:
     """A model with N(0, 0.02) weights and zero biases (LayerNorm: ones and
-    zeros), drawn from `generator`, which must live on the model's device."""
-    model = Seq2Seq(cfg, device)
-    for module in model.modules():
+    zeros), drawn from `generator`, which must live on the model's device.
+    Under a mesh that shards the model, this rank's shard of that model:
+    each weight is drawn whole, in the same order, and only this rank's
+    block of it kept, so no rank holds more than one full leaf."""
+    model = Seq2Seq(cfg, device, mesh)
+    for name, module in model.named_modules():
         if isinstance(module, Linear):
-            module.weight.normal_(0.0, 0.02, generator=generator)
+            dim = param_spec(f"{name}.weight") if module.mesh else None
+            if dim is None:
+                module.weight.normal_(0.0, 0.02, generator=generator)
+            else:
+                shape = list(module.weight.shape)
+                shape[dim] *= mesh.tp
+                full = module.weight.new_empty(shape).normal_(
+                    0.0, 0.02, generator=generator)
+                module.weight.copy_(shard_tensor(full, dim, mesh))
             module.bias.zero_()
         elif isinstance(module, LayerNorm):
             module.weight.fill_(1.0)

@@ -5,8 +5,8 @@ Port of neurosync_trainer_lite_tpu/ops/attention.py. Rounding follows the
 JAX path:
 
 - _linear accumulates in fp32, adds the fp32 bias, then rounds once to the
-  compute type. In bf16 it is an autograd Function with the rounding points
-  of JAX's transposed dots: dx rounded to bf16 once, the bias gradient
+  compute type. It is an autograd Function with the rounding points of
+  JAX's transposed dots, in bf16: dx rounded to bf16 once, the bias gradient
   summed in fp32, the weight gradient rounded to bf16 once and widened to
   the fp32 parameter (the transpose of w.astype(x.dtype)). Its products go
   through _mm_f32: torch.mm with an fp32 output on the card (that overload
@@ -31,12 +31,16 @@ mask from the saved seed instead of keeping it. Per-site seeds come from the
 training step's torch.Generator through split_seed, in the tree shape of the
 JAX keys (seq2seq → layers → sites → attention and residual).
 
-Data parallelism: a JAX mask is a function of the key and the global shape,
-whatever the sharding. Under dropout_rows(n, i) a rank holding one of n
-equal row blocks of a micro-batch draws the global micro-batch's bits
-(n times its own rows, from the same per-site seed) and keeps block i, so
-its masks are the rows of the one-process masks (the training step sets
-it; parallel/mesh.py:batch_rows lays the rows out to match).
+The rank mesh: a JAX mask is a function of the key and the global shape,
+whatever the sharding. Under dropout_rows(n, i, nw, j) a rank holding row
+block i of n of a micro-batch ('data') and width block j of nw of the
+model ('model') draws the global micro-batch's bits at the global width
+(from the same per-site seed) and keeps its block: its rows of every mask,
+and of a mask over a sharded width its block there too, the heads (dim 1)
+of an attention-weight mask and the columns (the last dim) of the FFN
+hidden mask; a residual mask over the replicated model width is kept
+whole. So its masks are blocks of the one-process masks (the training step
+sets it; parallel/mesh.py:batch_rows lays the rows out to match).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_qk_preheads
+from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 
 _SEED_HIGH = 1 << 62
 
@@ -75,36 +80,49 @@ def _bf16_value(v: float) -> float:
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b of two bf16 matrices, accumulated and returned in fp32."""
+    """a @ b of two bf16 matrices, accumulated and returned in fp32 (of two
+    fp32 matrices, their product)."""
+    if a.dtype == torch.float32:
+        return a @ b
     if a.is_cuda:
         return torch.mm(a, b, out_dtype=torch.float32)
     return a.float() @ b.float()
 
 
-class _LinearBf16(torch.autograd.Function):
-    """x2 [N, in] bf16 @ weight[out, in]ᵀ + bias, JAX's rounding points."""
+class _Linear(torch.autograd.Function):
+    """x2 [N, in] @ weight[out, in]ᵀ + bias, JAX's rounding points. Under a
+    mesh it is this rank's block of a Megatron linear over the 'model'
+    group (parallel/tensor.py): a 'row' one sums its fp32 partial product
+    over 'model' before the bias and the rounding, a 'column' one sums dx's
+    fp32 partial before dx's rounding."""
 
     @staticmethod
-    def forward(ctx, x2, weight, bias):
+    def forward(ctx, x2, weight, bias, mesh, kind):
         w = weight.to(x2.dtype)
         ctx.save_for_backward(x2, w)
-        return (_mm_f32(x2, w.t()) + bias.float()).to(x2.dtype)
+        ctx.mesh = mesh if kind == "column" else None
+        y = _mm_f32(x2, w.t())
+        if kind == "row":
+            y = reduce_model_(y, mesh, "forward")
+        return (y + bias.float()).to(x2.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x2, w = ctx.saved_tensors
-        dx = _mm_f32(dy, w).to(x2.dtype)
-        dw = _mm_f32(dy.t(), x2).to(x2.dtype).float()
-        return dx, dw, dy.float().sum(0)
+        dx = reduce_model_(_mm_f32(dy, w), ctx.mesh, "backward").to(x2.dtype)
+        dw = _mm_f32(dy.t(), x2)
+        if x2.dtype != torch.float32:
+            dw = dw.to(x2.dtype).float()
+        return dx, dw, dy.float().sum(0), None, None
 
 
-def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor):
-    """x [..., in] @ weight[out, in]ᵀ + bias, fp32 accumulation, one rounding."""
+def _linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            mesh=None, kind: str | None = None):
+    """x [..., in] @ weight[out, in]ᵀ + bias, fp32 accumulation, one
+    rounding; with a mesh, this rank's block of a 'column' or 'row'
+    parallel linear."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32:
-        y = x2 @ weight.t() + bias
-    else:
-        y = _LinearBf16.apply(x2, weight, bias)
+    y = _Linear.apply(x2, weight, bias, mesh, kind)
     return y.reshape(*x.shape[:-1], weight.shape[0])
 
 
@@ -124,40 +142,53 @@ def dropout_mask_q(rate: float) -> int:
     return int(round(rate * 256))
 
 
-#: (n, i): every mask is row block i of a draw over n times its rows. A
-#: process-wide setting, not a thread-local: the backward and the remat
-#: recompute run on autograd's device threads, inside the step that set it.
-_ROW_BLOCK = (1, 0)
+#: (n, i, nw, j): every mask is row block i of a draw over n times its
+#: rows and, over a sharded width, width block j of nw. A process-wide
+#: setting, not a thread-local: the backward and the remat recompute run on
+#: autograd's device threads, inside the step that set it.
+_BLOCKS = (1, 0, 1, 0)
 
 
 @contextlib.contextmanager
-def dropout_rows(n_blocks: int, index: int):
+def dropout_rows(n_blocks: int, index: int, width_blocks: int = 1,
+                 width_index: int = 0):
     """Inside the block, every dropout draw covers n_blocks times the rows
     (the leading dimension) it is asked for and keeps the index-th block of
-    them: a rank's rows of the global micro-batch's masks."""
-    global _ROW_BLOCK
-    if not 0 <= index < n_blocks:
-        raise ValueError(f"row block {index} of {n_blocks}")
-    saved, _ROW_BLOCK = _ROW_BLOCK, (n_blocks, index)
+    them, and a draw over a sharded width (dropout_keep's split_dim) covers
+    width_blocks times that width and keeps its width_index-th block: a
+    rank's block of the global micro-batch's masks."""
+    global _BLOCKS
+    for i, n in ((index, n_blocks), (width_index, width_blocks)):
+        if not 0 <= i < n:
+            raise ValueError(f"block {i} of {n}")
+    saved = _BLOCKS
+    _BLOCKS = (n_blocks, index, width_blocks, width_index)
     try:
         yield
     finally:
-        _ROW_BLOCK = saved
+        _BLOCKS = saved
 
 
-def dropout_keep(seed: int, shape, q: int, device) -> torch.Tensor:
+def dropout_keep(seed: int, shape, q: int, device,
+                 split_dim: int | None = None) -> torch.Tensor:
     """The shared keep-mask draw: uint8 bits from a generator seeded with
-    `seed`, keep iff bits >= q. A pure function of (seed, shape, device)
-    and the row block (dropout_rows), so every caller redrawing with the
-    same seed gets the same mask."""
-    n, i = _ROW_BLOCK
-    rows = shape[0]
+    `seed`, keep iff bits >= q. A pure function of (seed, shape, device,
+    split_dim) and the blocks (dropout_rows), so every caller redrawing
+    with the same seed gets the same mask. split_dim: the dim of `shape`
+    that holds this rank's block of a width sharded over 'model'."""
+    n, i, nw, j = _BLOCKS
+    full = [*shape]
+    full[0] *= n
+    if split_dim is not None:
+        full[split_dim] *= nw
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    bits = torch.empty((n * rows, *shape[1:]), dtype=torch.uint8,
-                       device=device)
+    bits = torch.empty(full, dtype=torch.uint8, device=device)
     bits.random_(generator=g)
-    return bits[i * rows: (i + 1) * rows] >= q
+    bits = bits.narrow(0, i * shape[0], shape[0])
+    if split_dim is not None:
+        bits = bits.narrow(split_dim, j * shape[split_dim], shape[split_dim])
+    return bits >= q
 
 
 def _drop(x: torch.Tensor, keep: torch.Tensor, q: int) -> torch.Tensor:
@@ -172,18 +203,23 @@ class _DropoutCore(torch.autograd.Function):
     """Inverted dropout whose backward redraws the mask from the seed."""
 
     @staticmethod
-    def forward(ctx, x, seed, q):
-        ctx.seed, ctx.q = seed, q
-        return _drop(x, dropout_keep(seed, x.shape, q, x.device), q)
+    def forward(ctx, x, seed, q, split_dim):
+        ctx.seed, ctx.q, ctx.split_dim = seed, q, split_dim
+        return _drop(x, dropout_keep(seed, x.shape, q, x.device, split_dim),
+                     q)
 
     @staticmethod
     def backward(ctx, dy):
-        keep = dropout_keep(ctx.seed, dy.shape, ctx.q, dy.device)
-        return _drop(dy, keep, ctx.q), None, None
+        keep = dropout_keep(ctx.seed, dy.shape, ctx.q, dy.device,
+                            ctx.split_dim)
+        return _drop(dy, keep, ctx.q), None, None, None
 
 
-def dropout(x: torch.Tensor, rate: float, seed, train: bool) -> torch.Tensor:
-    """Inverted dropout (torch.nn.Dropout semantics) with uint8 thresholds."""
+def dropout(x: torch.Tensor, rate: float, seed, train: bool,
+            split_dim: int | None = None) -> torch.Tensor:
+    """Inverted dropout (torch.nn.Dropout semantics) with uint8 thresholds;
+    split_dim: the dim that holds a width sharded over 'model'
+    (dropout_keep)."""
     if not train or rate == 0.0 or seed is None:
         return x
     q = dropout_mask_q(rate)
@@ -191,7 +227,7 @@ def dropout(x: torch.Tensor, rate: float, seed, train: bool) -> torch.Tensor:
         return x
     if q >= 256:  # rate ≈ 1.0: everything dropped (torch nn.Dropout(1.0))
         return torch.zeros_like(x)
-    return _DropoutCore.apply(x, seed, q)
+    return _DropoutCore.apply(x, seed, q, split_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -221,7 +257,7 @@ def _lean_weights(q, k, seed, scale, qthresh):
     w = torch.softmax(s.float(), dim=-1).to(torch.bfloat16)
     if qthresh == 0:
         return w, w, None
-    keep = dropout_keep(seed, w.shape, qthresh, w.device)
+    keep = dropout_keep(seed, w.shape, qthresh, w.device, split_dim=1)
     return w, _drop(w, keep, qthresh), keep
 
 
@@ -279,11 +315,11 @@ def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
                 return _SdpaLeanCore.apply(q, k, v, seed, scale, qthresh)
         scores = _matmul_round_once(q, kt) * _bf16_value(scale)
         weights = _SoftmaxResidualBf16.apply(scores)
-        weights = dropout(weights, dropout_rate, seed, train)
+        weights = dropout(weights, dropout_rate, seed, train, split_dim=1)
         return _matmul_round_once(weights, v)
     scores = torch.matmul(q, kt) * scale
     weights = torch.softmax(scores.float(), dim=-1)
-    weights = dropout(weights, dropout_rate, seed, train)
+    weights = dropout(weights, dropout_rate, seed, train, split_dim=1)
     return torch.matmul(weights.to(v.dtype), v)
 
 
@@ -291,16 +327,21 @@ def multi_head_attention(p, query, key, value, *, num_heads: int,
                          dropout_rate: float = 0.0, seed=None,
                          train: bool = False, use_rope: bool = True,
                          impl: str = "auto"):
-    """p has q_linear, k_linear, v_linear, out_linear (weight [H, H], bias [H]).
+    """p has the linears q_linear, k_linear, v_linear and out_linear
+    (models/seq2seq.py:Linear, called on [..., in]).
 
-    query [B, Tq, H], key/value [B, Tk, H] → [B, Tq, H]. In training, `seed`
-    splits into the attention-weight and the residual dropout sites.
+    query [B, Tq, H], key/value [B, Tk, H] → [B, Tq, H]. Under tensor
+    parallelism q, k and v return this rank's num_heads heads (of width
+    h each) and out_linear sums the ranks' heads back to the width H. In
+    training, `seed` splits into the attention-weight and the residual
+    dropout sites.
     """
-    B, Tq, H = query.shape
-    h = H // num_heads
-    q = _linear(query, p.q_linear.weight, p.q_linear.bias)
-    k = _linear(key, p.k_linear.weight, p.k_linear.bias)
-    v = _linear(value, p.v_linear.weight, p.v_linear.bias)
+    B, Tq, _ = query.shape
+    q = p.q_linear(query)
+    k = p.k_linear(key)
+    v = p.v_linear(value)
+    width = q.shape[-1]
+    h = width // num_heads
     seed_attn, seed_resid = split_or_none(seed if train else None, 2)
 
     drop_active = train and dropout_rate > 0.0 and seed_attn is not None
@@ -320,6 +361,6 @@ def multi_head_attention(p, query, key, value, *, num_heads: int,
         out = sdpa(split_heads(q), split_heads(k), split_heads(v),
                    dropout_rate=dropout_rate, seed=seed_attn, train=train,
                    impl=impl)
-        out = out.transpose(1, 2).reshape(B, Tq, H)
-    out = _linear(out, p.out_linear.weight, p.out_linear.bias)
+        out = out.transpose(1, 2).reshape(B, Tq, width)
+    out = p.out_linear(out)
     return dropout(out, dropout_rate, seed_resid, train)

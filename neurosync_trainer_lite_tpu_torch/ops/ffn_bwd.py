@@ -37,6 +37,7 @@ from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
 )
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 from neurosync_trainer_lite_tpu_torch.ops.attention import _bf16_value, _mm_f32
+from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 
 #: rows of csrc/ffn_bwd.cu's output tile, so the partial sums' row count is
 #: ceil(M / ROW_TILE); the kernel refuses any other
@@ -102,12 +103,16 @@ class _FfnLeanCoreFused(torch.autograd.Function):
     _FfnLeanCore's, with am scaled by the bf16-rounded scale: bit-identical.
     The backward takes (dh1, db2, db1) from ffn_bwd_dh1 at the fp32 scale;
     dw2, dw1 and dx stay products with fp32 outputs (_mm_f32), as JAX keeps
-    them XLA einsums."""
+    them XLA einsums. Under tensor parallelism K2 needs no change: dh1 =
+    dy·W2 takes the replicated dy and this rank's W2 [H, F/tp], and db2 =
+    Σdy is the same on every 'model' rank, as a replicated bias's gradient
+    must be; dx's fp32 partial is summed over 'model' before its rounding,
+    as in _FfnLeanCore."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, keep, scale):
+    def forward(ctx, x, w1, b1, w2, b2, keep, scale, mesh=None):
         y = _FfnLeanCore.forward(ctx, x, w1, b1, w2, b2, keep,
-                                 _bf16_value(scale))
+                                 _bf16_value(scale), mesh)
         ctx.scale = scale
         return y
 
@@ -118,8 +123,9 @@ class _FfnLeanCoreFused(torch.autograd.Function):
         dh1, db2, db1 = ffn_bwd_dh1(dy2, w2c, am, scale=ctx.scale)
         dw2 = _mm_f32(dy2.t(), am)
         dw1 = _mm_f32(dh1.t(), x2)
-        dx = _mm_f32(dh1, w1c).to(dy.dtype)
-        return dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None
+        dx = reduce_model_(_mm_f32(dh1, w1c), ctx.mesh, "backward")
+        return (dx.to(dy.dtype).reshape(ctx.shape), dw1, db1, dw2, db2, None,
+                None, None)
 
 
 def ffn_fused(module, x, seed=None):
@@ -132,4 +138,4 @@ def ffn_fused(module, x, seed=None):
     keep, scale = lean
     return _FfnLeanCoreFused.apply(
         x, module.linear1.weight, module.linear1.bias, module.linear2.weight,
-        module.linear2.bias, keep, scale)
+        module.linear2.bias, keep, scale, module.linear2.mesh)

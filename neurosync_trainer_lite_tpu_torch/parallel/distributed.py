@@ -18,10 +18,17 @@ Three launch modes, as the JAX package's:
 
 A failed collective raises: nothing here falls back to a single process.
 
+The mesh's collectives (parallel/mesh.py) name their axis: the gradient
+mean and the rows' all-gather run over 'data', the broadcast of rank 0's
+state within each 'data' group; parallel/tensor.py's Megatron sums run
+over 'model'. With tp = 1 the 'data' axis is the default group; with tp > 1
+make_mesh builds both axes' subgroups (mesh_groups).
+
 host_put has no counterpart: a rank holds its own rows of a batch and
 nothing else, so there is no host-global array to place (rank_rows is
-assemble_sharded_batch's counterpart). host_local_params waits for tensor
-parallelism: under data parallelism every rank holds the whole state.
+assemble_sharded_batch's counterpart). gather_state_dict is
+host_local_params': the full state on one rank's host, gathered over
+'model' one leaf at a time.
 """
 
 from __future__ import annotations
@@ -157,39 +164,71 @@ def fenced(tag: str):
             "" if err is not None else " on another process")) from err
 
 
-def _group_for(mesh) -> bool:
-    """Whether the mesh's collectives run: True with a process group up,
-    False for a one-rank mesh in one process. A mesh of several ranks with
-    no group raises: nothing here falls back to a single process."""
+_GROUPS: dict = {}
+
+
+def mesh_groups(dp: int, tp: int):
+    """(this rank's 'data' group, its 'model' group) of a (dp, tp) mesh
+    over the default group, rank = data_index · tp + model_index. Every
+    rank builds every group, in one order (dist.new_group's contract);
+    a mesh's groups are built once a process group."""
+    if (dp, tp) not in _GROUPS:
+        model, _ = dist.new_subgroups_by_enumeration(
+            [[d * tp + m for m in range(tp)] for d in range(dp)])
+        data, _ = dist.new_subgroups_by_enumeration(
+            [[d * tp + m for d in range(dp)] for m in range(tp)])
+        _GROUPS[dp, tp] = (data, model)
+    return _GROUPS[dp, tp]
+
+
+def _group_for(mesh, axis: str = "data") -> bool:
+    """Whether the mesh's collectives over `axis` run: with a process group
+    up, over an axis of several ranks, and over the one rank of a one-rank
+    mesh (its default group); an axis of one rank beside an axis of
+    several has nothing to reduce. In one process, False for an axis of
+    one rank; an axis of several ranks with no group raises: nothing here
+    falls back to a single process."""
+    size = mesh.dp if axis == "data" else mesh.tp
     if is_initialized():
-        return True
-    if mesh.dp != 1:
-        raise RuntimeError(f"a {mesh.dp}-rank mesh without a process group")
+        return size > 1 or mesh.dp * mesh.tp == 1
+    if size != 1:
+        raise RuntimeError(f"a {size}-rank mesh without a process group")
     return False
 
 
 def all_reduce_mean_(t: torch.Tensor, mesh) -> torch.Tensor:
     """t ← the mean of t over the mesh's 'data' ranks, in place: one
     all-reduce (a sum) and one division by dp."""
-    if not _group_for(mesh):
+    if not _group_for(mesh, "data"):
         return t
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=mesh.data_group)
     if mesh.dp != 1:
         t.div_(mesh.dp)
     return t
 
 
+def all_reduce_sum_(t: torch.Tensor, mesh) -> torch.Tensor:
+    """t ← the sum of t over the mesh's 'model' ranks, in place (fp32 in
+    every caller)."""
+    if not _group_for(mesh, "model"):
+        return t
+    dist.all_reduce(t, group=mesh.model_group)
+    return t
+
+
 def broadcast_(tensors: list[torch.Tensor], mesh, src: int = 0) -> None:
-    """Overwrite `tensors` on every rank with rank src's, one broadcast a
-    (device, dtype) run of them through a flat buffer."""
-    if not _group_for(mesh) or not tensors:
+    """Overwrite `tensors` on every rank of each 'data' group with its rank
+    of data index src, one broadcast a (device, dtype) run of them through
+    a flat buffer."""
+    if not _group_for(mesh, "data") or not tensors:
         return
+    root = src * mesh.tp + mesh.model_index
     groups: dict = {}
     for t in tensors:
         groups.setdefault((t.device, t.dtype), []).append(t)
     for ts in groups.values():
         flat = torch.cat([t.reshape(-1) for t in ts])
-        dist.broadcast(flat, src)
+        dist.broadcast(flat, root, group=mesh.data_group)
         offset = 0
         for t in ts:
             t.copy_(flat[offset: offset + t.numel()].view_as(t))
@@ -199,11 +238,53 @@ def broadcast_(tensors: list[torch.Tensor], mesh, src: int = 0) -> None:
 def all_gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
     """[m, ...] on each 'data' rank → [dp·m, ...] on every rank, rank
     order."""
-    if not _group_for(mesh):
+    if not _group_for(mesh, "data"):
         return t
     parts = [torch.empty_like(t) for _ in range(mesh.dp)]
-    dist.all_gather(parts, t.contiguous())
+    dist.all_gather(parts, t.contiguous(), group=mesh.data_group)
     return torch.cat(parts)
+
+
+def _gather_leaf(t: torch.Tensor, dim, mesh, keep: bool):
+    """A leaf on the host, its 'model' shards concatenated along dim (an
+    all-gather over 'model', where a mesh is given); None where not
+    keep."""
+    if dim is not None and mesh is not None:
+        parts = [torch.empty_like(t) for _ in range(mesh.tp)]
+        dist.all_gather(parts, t.detach().contiguous(),
+                        group=mesh.model_group)
+        t = torch.cat(parts, dim)
+    return t.detach().to("cpu", copy=True) if keep else None
+
+
+def gather_state_dict(model, mesh=None, dst: int = 0, optimizer=None):
+    """The full reference-format state dict (and, given the optimizer, its
+    full Adam state dict) on rank dst's host: {"model": ..., "optimizer":
+    ...}; None on every other rank. Collective over 'model' where the mesh
+    shards the model: every rank calls it, and the 'model' group of dst
+    gathers one leaf at a time, as the JAX package's host_local_params
+    does, so no device holds a second full copy of the state (the peak is
+    one whole leaf). Without a sharded mesh it is rank dst's host copy."""
+    from neurosync_trainer_lite_tpu_torch.parallel.mesh import param_spec
+
+    keep = rank() == dst
+    if mesh is None or mesh.tp == 1 or not _group_for(mesh, "model"):
+        if not keep:
+            return None
+        mesh = None                  # every leaf whole on every rank
+    elif rank() // mesh.tp != dst // mesh.tp:
+        return None                  # no part of dst's 'model' group
+    out = {"model": {k: _gather_leaf(v, param_spec(k), mesh, keep)
+                     for k, v in model.state_dict().items()}}
+    if optimizer is not None:
+        names = [k for k, _ in model.named_parameters()]
+        osd = optimizer.state_dict()
+        out["optimizer"] = {**osd, "state": {
+            i: {k: _gather_leaf(v, None if k == "step" else
+                                param_spec(names[i]), mesh, keep)
+                for k, v in s.items()}
+            for i, s in osd["state"].items()}}
+    return out if keep else None
 
 
 def rank_rows(chunk: np.ndarray, mesh, accum: int = 1) -> np.ndarray:
@@ -216,5 +297,6 @@ def rank_rows(chunk: np.ndarray, mesh, accum: int = 1) -> np.ndarray:
 
 def destroy() -> None:
     """Leave the process group, if one is up."""
+    _GROUPS.clear()
     if is_initialized():
         dist.destroy_process_group()

@@ -9,16 +9,20 @@ geometry; --init_from_pth warm-starts from a reference-format model.pth;
 --profile DIR writes a torch.profiler chrome trace of one epoch. Runs on the
 CUDA card unless --device cpu is given.
 
-Data parallelism, one process a card (parallel/distributed.py):
+Data and tensor parallelism, one process a card (parallel/):
 
     torchrun --nproc_per_node 4 -m neurosync_trainer_lite_tpu_torch.train --distributed
+    torchrun --nproc_per_node 4 -m neurosync_trainer_lite_tpu_torch.train \
+        --distributed --dp 2 --tp 2           # a (2, 2) rank mesh
     python -m neurosync_trainer_lite_tpu_torch.train --coordinator HOST:PORT \
         --num_processes N --process_id I      # once per rank
 
 --distributed reads torchrun's environment (env://), where the JAX package
-auto-detects a TPU pod; --coordinator is the explicit mode. --device cpu
-runs CPU ranks over gloo. Rank flags without a coordinator, or beside
---distributed, refuse to run rather than train single-process.
+auto-detects a TPU pod; --coordinator is the explicit mode. The world is
+dp · tp ranks (dp = -1: the world over tp); any other world refuses to
+run. --device cpu runs CPU ranks over gloo. Rank flags without a
+coordinator, or beside --distributed, refuse to run rather than train
+single-process.
 """
 
 from __future__ import annotations

@@ -22,11 +22,18 @@ host copies, synchronised) and only then hands the write to a thread;
 ``wait_for_pending_saves`` joins it, then writes the deferred meta.json,
 and raises if a write failed.
 
-Multi-process jobs (parallel/distributed.py). Every rank holds the whole
-state, so rank 0 writes it, and saving is collective all the same: every
-rank calls save_checkpoint and passes the barriers around the rotation
-(ckpt-pre-rotate, ckpt-post-rotate) and after the write or, when async,
-its start (ckpt-saved). Failures are fenced across the ranks: the last two
+Multi-process jobs (parallel/distributed.py). Rank 0 writes the whole
+state, and saving is collective: every rank calls save_checkpoint and
+passes the barriers around the rotation (ckpt-pre-rotate,
+ckpt-post-rotate) and after the write or, when async, its start
+(ckpt-saved). Under data parallelism every rank holds the whole state;
+under tensor parallelism rank 0's 'model' group first gathers the
+parameters and Adam moments to rank 0's host, leaf by leaf
+(distributed.gather_state_dict), so the file is the tp = 1 format
+whatever the mesh, and load_checkpoint cuts each rank's shard from it
+(training/step.py:init_train_state): a checkpoint saved at one tp
+resumes at any other, as the JAX package's Orbax restore into any
+state_shardings does. Failures are fenced across the ranks: the last two
 barriers are all-reduces of a failure flag (distributed.fenced), and
 wait_for_pending_saves does the same for the async writes, so a failed
 rotation, write or export on rank 0 raises on every rank, where a lone
@@ -177,7 +184,8 @@ def save_checkpoint(state: TrainState, epoch: int, batch_step: int,
     state file's path. async_save=True returns once the host snapshot is
     taken; the disk write overlaps the caller's work and meta.json follows
     in wait_for_pending_saves. Collective in a multi-process job: every
-    rank calls it, rank 0 writes."""
+    rank calls it, rank 0 writes (the full state, gathered where the model
+    is sharded)."""
     path = os.path.abspath(checkpoint_path or cfg.checkpoint_path)
     primary = distributed.rank() == 0
     wait_for_pending_saves()  # the previous save must land before rotating
@@ -191,11 +199,12 @@ def save_checkpoint(state: TrainState, epoch: int, batch_step: int,
     # async: the snapshot and the thread's start; the write is fenced in
     # wait_for_pending_saves
     with distributed.fenced("ckpt-saved"):
+        # rank 0's host snapshot; collective where the model is sharded
+        snapshot = distributed.gather_state_dict(
+            state.model, state.model.mesh, optimizer=state.optimizer)
         if primary:
             meta = {"epoch": epoch, "batch_step": batch_step,
                     "config": cfg.to_dict()}
-            snapshot = {"model": _to_host(state.model.state_dict()),
-                        "optimizer": _to_host(state.optimizer.state_dict())}
             if async_save:
                 _in_background(_write_atomic, snapshot, state_file)
                 _pending.metas.append((path, meta))
@@ -248,7 +257,8 @@ def load_checkpoint(checkpoint_path: str, cfg: Config, steps_per_epoch: int,
     """Returns (epoch, batch_step, TrainState) on `device` (default: the
     card). The optimizer's moments move to their parameters' device; its
     step counts stay on the host, as a fresh Adam keeps them. Under a mesh
-    every rank reads the checkpoint and then takes rank 0's state."""
+    every rank reads the checkpoint and then takes rank 0's state; where
+    the mesh shards the model, each rank keeps its shard of it."""
     meta, blob = _load_state(checkpoint_path)
     state = init_train_state(cfg, steps_per_epoch, device=device,
                              state_dict=blob["model"],

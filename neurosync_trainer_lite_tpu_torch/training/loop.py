@@ -26,8 +26,15 @@ the history (train and validation losses, grad norms) is the same on every
 rank. Checkpoints are collective (training/checkpoint.py); plots, CSVs,
 the fixed-wav validation and model.pth are written by rank 0 alone, each
 behind a fence (parallel/distributed.py:fenced) that raises its failure on
-every rank. The epoch's samples/s counts the global batch. Tensor parallelism is not
-ported: tp != 1 raises NotImplementedError.
+every rank. The epoch's samples/s counts the global batch.
+
+Tensor parallelism (tp > 1): the ranks of a 'model' group gather the same
+rows and each trains its shard (training/step.py). The model.pth export
+and the fixed-wav validation run on rank 0 from the full parameters,
+gathered over 'model' once an epoch (_export_model, collective: the JAX
+package's _export_view over host_local_params); checkpoints gather their
+own (training/checkpoint.py). The auto-remat planner keeps the JAX
+package's arithmetic, which counts the 'data' shards and ignores tp.
 """
 
 from __future__ import annotations
@@ -46,8 +53,12 @@ from neurosync_trainer_lite_tpu_torch.data.windowing import (
     prepare_datasets,
     to_device,
 )
+from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
 from neurosync_trainer_lite_tpu_torch.parallel import distributed
-from neurosync_trainer_lite_tpu_torch.parallel.mesh import resolve_mesh
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
+    param_spec,
+    resolve_mesh,
+)
 from neurosync_trainer_lite_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -282,6 +293,22 @@ def _maybe_auto_remat(cfg: Config, n_data_shards: int, verbose: bool,
                        remat_layers=remat_layers)
 
 
+def _export_model(state: TrainState, cfg: Config, device):
+    """Rank 0's full model for model.pth and the fixed-wav validation:
+    state.model itself where it is whole, else the full parameters
+    gathered over 'model' into a model of their own (collective: every
+    rank calls it). None on the other ranks."""
+    model = state.model
+    if model.mesh is None:
+        return model if distributed.rank() == 0 else None
+    full = distributed.gather_state_dict(model, model.mesh)
+    if full is None:
+        return None
+    whole = Seq2Seq(cfg, device)
+    whole.load_state_dict(full["model"], strict=True)
+    return whole
+
+
 def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
                 save_artifacts=True, init_state_dict=None, split_indices=None,
                 history_out=None, device=None):
@@ -296,8 +323,6 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
     split_indices: (train_idx, val_idx) window-index arrays in place of the
     seeded split. Returns (state, batch_step).
     """
-    if cfg.tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet")
     mesh = resolve_mesh(cfg, mesh)
     device = resolve_device(device)
     if clips is None and distributed.is_multiprocess():
@@ -335,11 +360,14 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
     state = init_train_state(cfg, steps_per_epoch, generator=generator,
                              device=device, state_dict=init_state_dict,
                              mesh=mesh)
-    if verbose:
-        print(f"Total number of parameters: "
-              f"{sum(p.numel() for p in state.model.parameters())}")
+    if verbose:   # the full model's, counting each sharded leaf whole
+        tp = 1 if state.model.mesh is None else state.model.mesh.tp
+        n_params = sum(p.numel() * (1 if param_spec(k) is None else tp)
+                       for k, p in state.model.named_parameters())
+        print(f"Total number of parameters: {n_params}")
         if mesh is not None:
-            print(f"Rank mesh: {mesh.shape}, data index {mesh.data_index}")
+            print(f"Rank mesh: {mesh.shape}, data index {mesh.data_index}, "
+                  f"model index {mesh.model_index}")
 
     start_epoch, batch_step = 0, 0
     if cfg.mode == "resume" and os.path.exists(cfg.checkpoint_path):
@@ -377,20 +405,23 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
                             async_save=cfg.async_checkpoint)
         # rank 0's work; a failure there raises on every rank
         with distributed.fenced("epoch-artifacts"):
+            export = _export_model(state, cfg, device) if save_ckpt else None
             if save_artifacts:
-                save_final_model(state.model, cfg,
+                save_final_model(export, cfg,
                                  async_save=cfg.async_checkpoint)
                 if have_val_assets:
                     generate_and_save_facial_data(
-                        epoch, cfg.audio_path, state.model,
+                        epoch, cfg.audio_path, export,
                         cfg.ground_truth_path, cfg)
+            del export
 
     if save_ckpt:
         # collective: an export that failed on rank 0 raises on every rank
         wait_for_pending_saves()
     with distributed.fenced("final-export"):
+        export = _export_model(state, cfg, device) if save_ckpt else None
         if save_artifacts:
             # a synchronous final write: a good model.pth even if an
             # epoch's async export failed
-            save_final_model(state.model, cfg)
+            save_final_model(export, cfg)
     return state, batch_step

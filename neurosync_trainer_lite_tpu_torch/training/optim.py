@@ -10,7 +10,10 @@ neurosync_trainer_lite_tpu/training/optim.py).
   trajectory from the optimizer's own step count.
 - Global-norm clipping at cfg.grad_clip on the raw gradients, with optax's
   formula: g / ‖g‖ · max where ‖g‖ ≥ max, else g unchanged (not
-  clip_grad_norm_'s max / (‖g‖ + 1e-6)).
+  clip_grad_norm_'s max / (‖g‖ + 1e-6)). Under tensor parallelism the norm
+  is the global arrays' (optax's over GSPMD-sharded leaves): the sharded
+  leaves' sums of squares summed over 'model', the replicated leaves'
+  counted once, so the clip factor is equal on every rank.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 
 
 def lr_factor(epoch: int | float, cfg: Config) -> float:
@@ -44,9 +48,20 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
                             eps=1e-8, weight_decay=cfg.weight_decay)
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def global_norm(grads, sharded=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax.global_norm).
+    With a mesh that shards the model, sharded[i] says whether grads[i] is
+    this rank's block of a leaf sharded over 'model': those sums of squares
+    are summed over 'model' (one all-reduce), the others counted once."""
+    def sq(gs):
+        return sum(torch.sum(torch.square(g.float())) for g in gs)
+
+    if mesh is None or mesh.tp == 1:
+        return torch.sqrt(sq(grads))
+    part = sq(g for g, s in zip(grads, sharded) if s)
+    rest = sq(g for g, s in zip(grads, sharded) if not s)
+    part = reduce_model_(part.reshape(1), mesh, "grad_norm")[0]
+    return torch.sqrt(part + rest)
 
 
 def clip_by_global_norm_(grads, norm: torch.Tensor, max_norm: float) -> None:

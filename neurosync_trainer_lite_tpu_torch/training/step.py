@@ -25,7 +25,19 @@ broadcasts rank 0's to start them equal. No DistributedDataParallel: its
 per-bucket hooks fire inside the backward, need no_sync across
 accumulation and meet the remat checkpoints and the port's autograd
 Functions. Overlapping the reduction with the backward is later work.
-Tensor parallelism is not ported yet: tp != 1 raises.
+
+Tensor parallelism (a mesh with tp > 1): each rank holds its shard of the
+model (models/seq2seq.py, parallel/tensor.py) and its Adam moments, and
+the ranks of one 'model' group run the same rows, with every mask their
+block of the global draw at the global width (dropout_rows' width block).
+The all-reduce above runs over 'data' only; the pre-clip norm sums the
+sharded leaves over 'model' (training/optim.py:global_norm), then the clip
+and Adam run on the shard. The replicated leaves' gradients are equal on
+the ranks of a 'model' group, so those leaves stay bitwise equal there.
+init_train_state builds the full model (the generator's init or the
+state dict) on every rank and keeps the rank's shard, as the JAX package
+inits and then places its state (shard_state); rank 0's broadcast runs
+within each 'data' group.
 """
 
 from __future__ import annotations
@@ -46,7 +58,14 @@ from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
     all_reduce_mean_,
     broadcast_,
 )
-from neurosync_trainer_lite_tpu_torch.parallel.mesh import Mesh, resolve_mesh
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
+    Mesh,
+    model_sharded,
+    param_spec,
+    resolve_mesh,
+    shard_optimizer_state,
+    shard_state_dict,
+)
 from neurosync_trainer_lite_tpu_torch.training.optim import (
     clip_by_global_norm_,
     global_norm,
@@ -63,15 +82,11 @@ class TrainState:
     schedule: Callable[[int], float]
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.tp != 1:
-        raise NotImplementedError("tensor parallelism is not ported yet")
-
-
 def _broadcast_state(state: TrainState, mesh: Mesh | None) -> None:
-    """Every rank takes rank 0's parameters and Adam moments. Adam's step
-    counts stay: they are host scalars, equal on every rank that read the
-    same checkpoint (and absent before the first step)."""
+    """Every rank takes the parameters and Adam moments of the rank of data
+    index 0 in its 'data' group (rank 0 without tensor parallelism). Adam's
+    step counts stay: they are host scalars, equal on every rank that read
+    the same checkpoint (and absent before the first step)."""
     if mesh is None:
         return
     tensors = [p.data for p in state.model.parameters()]
@@ -88,24 +103,28 @@ def init_train_state(cfg: Config, steps_per_epoch: int, *,
     """A model in train mode (seeded init from `generator`, which lives on
     the device, or `state_dict`), its Adam (from `optimizer_state` if
     given) and its LR schedule. Under a mesh (default: the config's,
-    parallel/mesh.py:resolve_mesh) every rank starts from rank 0's weights
-    and moments."""
-    _check_ported(cfg)
+    parallel/mesh.py:resolve_mesh) every rank starts from the weights and
+    moments of data index 0 in its 'data' group; where the mesh shards the
+    model, each rank draws (init_seq2seq) or keeps (of the full state
+    dicts) its shard."""
     mesh = resolve_mesh(cfg, mesh)
     device = resolve_device(device)
     if state_dict is None:
         if generator is None:
             raise ValueError("init_train_state needs a generator or a "
                              "state_dict")
-        model = init_seq2seq(cfg, generator, device)
+        model = init_seq2seq(cfg, generator, device, mesh)
     else:
-        model = Seq2Seq(cfg, device)
-        model.load_state_dict(state_dict, strict=True)
+        model = Seq2Seq(cfg, device, mesh)
+        model.load_state_dict(shard_state_dict(state_dict, cfg, mesh),
+                              strict=True)
+        del state_dict
     model.train()
     state = TrainState(model, make_optimizer(cfg, model.parameters()),
                        make_schedule(cfg, steps_per_epoch))
     if optimizer_state is not None:
-        state.optimizer.load_state_dict(optimizer_state)
+        state.optimizer.load_state_dict(shard_optimizer_state(
+            optimizer_state, [k for k, _ in model.named_parameters()], mesh))
     _broadcast_state(state, mesh)
     return state
 
@@ -151,12 +170,14 @@ def make_train_step(cfg: Config, *, total_steps: int = 1,
 
     Under a mesh (default: the config's, parallel/mesh.py:resolve_mesh)
     src and trg are this rank's rows (batch_rows) and the loss and norm
-    are the global batch's, equal on every rank."""
-    _check_ported(cfg)
+    are the global batch's, equal on every rank. Where the mesh shards the
+    model, state.model is this rank's shard (init_train_state)."""
     mesh = resolve_mesh(cfg, mesh)
     if mesh is not None:
         check_batch_split(cfg.batch_size, cfg.grad_accum_steps, mesh.dp)
-    rows = (1, 0) if mesh is None else (mesh.dp, mesh.data_index)
+    blocks = ((1, 0, 1, 0) if mesh is None else
+              (mesh.dp, mesh.data_index, mesh.tp, mesh.model_index))
+    tp_mesh = mesh if model_sharded(mesh) else None
     anneal = cfg.loss_variant == "smoothness" and cfg.smoothness_annealing
     if anneal and total_steps <= 1:
         # with total_steps=1 the phase is a multiple of 2π at every step
@@ -174,21 +195,24 @@ def make_train_step(cfg: Config, *, total_steps: int = 1,
         model.train()
         opt.zero_grad(set_to_none=True)
         loss = None
-        with dropout_rows(*rows):
+        with dropout_rows(*blocks):
             for s, t in zip(src.chunk(accum), trg.chunk(accum)):
                 micro = _compute_loss(model, s, t, cfg, generator,
                                       step_count, total_steps)
                 micro.backward()
                 loss = (micro.detach() if loss is None
                         else loss + micro.detach())
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        named = [(k, p.grad) for k, p in model.named_parameters()
+                 if p.grad is not None]
+        grads = [g for _, g in named]
         if accum > 1:
             for g in grads:
                 g.div_(accum)
             loss = loss / accum
         if mesh is not None:
             loss = _reduce_gradients(grads, loss, mesh)
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(
+            grads, [param_spec(k) is not None for k, _ in named], tp_mesh)
         clip_by_global_norm_(grads, grad_norm, cfg.grad_clip)
         lr = state.schedule(count)
         for group in opt.param_groups:

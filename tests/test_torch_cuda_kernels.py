@@ -569,6 +569,75 @@ def test_ffn_fused_step_on_the_card_runs_k2(gen, monkeypatch):
     assert runs["fused"][1] == pytest.approx(runs["default"][1], rel=2e-2)
 
 
+#: the shapes a rank of tp = 2 gives the kernels at full width: 8 of the
+#: 16 heads (h = 64) on [B, T, 512] (B: a request's chunks, a data
+#: group's 8 rows at (2, 2) and batch 16, batch 32, batch 128), and 2048
+#: of the 4096 FFN columns at those batches' M = B · 128
+TP2_ATTN_ROWS, TP2_FFN_M = (8, 17, 32, 128), (16384, 4096, 1024)
+
+
+@pytest.mark.parametrize("B", TP2_ATTN_ROWS)
+def test_kernels_at_a_tp2_ranks_attention_shapes(gen, B):
+    """K1 (the per-head rotation of q and k: bitwise), the K4 forward
+    (within fua.fwd_limit) and, at the training rows, the K4 backward
+    (bwd_limit) on a tp = 2 rank's [B, 128, 512] with 8 heads, bf16."""
+    bf16 = torch.bfloat16
+    q, k, v, do = (_randn(gen, B, 128, 512, dtype=bf16) for _ in range(4))
+    tables = rope_tables(128, 64, "cuda", tile=8)
+    assert torch.equal(rk.rope_rotate_cuda(q, *tables),
+                       rk.rope_rotate_plain(q, *tables))
+    ftables = fua.make_tables(128, 128, 64, 8, "cuda")
+    out = fua.fused_rope_attention_cuda(q, k, v, ftables, 8, 64 ** -0.5)
+    ref = fua.fused_rope_attention_plain(q, k, v, ftables, 8, 64 ** -0.5)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= fua.fwd_limit(ref, bf16)).all()), diff.max().item()
+    if B != 128:
+        return
+    out = fua.fused_rope_attention_bwd_cuda(q, k, v, do, ftables, 8,
+                                            64 ** -0.5)
+    ref = fua.fused_rope_attention_bwd_plain(q, k, v, do, ftables, 8,
+                                             64 ** -0.5)
+    for name, a, b in zip("qkv", out, ref):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= bwd_limit(b, bf16)).all()), \
+            (name, diff.max().item())
+
+
+def test_rope_fp32_at_a_tp2_ranks_decode_shape(gen):
+    """K1 in fp32 on the fp32 decode's [17, 128, 512] with 8-head tables:
+    bitwise the plain version."""
+    x = _randn(gen, 17, 128, 512)
+    tables = rope_tables(128, 64, "cuda", tile=8)
+    assert torch.equal(rk.rope_rotate_cuda(x, *tables),
+                       rk.rope_rotate_plain(x, *tables))
+
+
+@pytest.mark.parametrize("m", TP2_FFN_M)
+def test_ffn_bwd_at_a_tp2_ranks_shape_runs_wgmma(gen, m):
+    """K2 at a tp = 2 rank's [M, 1024, 2048] (dy · W2 of its [1024, 2048]
+    block): within kernel_limits of the plain version, on
+    ffn_bwd_wgmma_kernel."""
+    h, f = 1024, 2048
+    bf16 = torch.bfloat16
+    dy = _randn(gen, m, h, dtype=bf16)
+    w = (_randn(gen, h, f) * 0.05).to(bf16)
+    am = torch.relu(_randn(gen, m, f) - 0.3).to(bf16)
+    outs = []
+
+    def run():
+        outs.append(ffn_bwd.ffn_bwd_dh1_cuda(dy, w, am, scale=256 / 179))
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "ffn_bwd")
+    assert names and all("ffn_bwd_wgmma_kernel" in n for n in names), names
+    out = outs[-1]
+    ref = ffn_bwd.ffn_bwd_dh1_plain(dy, w, am, scale=256 / 179)
+    for name, a, b, limit in zip(("dh1", "db2", "db1"), out, ref,
+                                 ffn_bwd.kernel_limits(ref)):
+        diff = (a.float() - b.float()).abs()
+        assert bool((diff <= limit).all()), (name, diff.max().item())
+
+
 def test_nccl_one_rank_step_equals_no_group_bitwise(gen, tmp_path):
     """A DP step through an NCCL group of one rank and its all-reduce of the
     flat gradient equals the step with no group bit for bit, at dropout

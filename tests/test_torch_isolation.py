@@ -76,6 +76,7 @@ bad = sorted(n for n in sys.modules
                               "matplotlib.")))
 need = [pkg.__name__ + m for m in (".ops.flash_attention", ".ops.ffn_bwd",
                                    ".parallel.mesh", ".parallel.distributed",
+                                   ".parallel.tensor",
                                    ".training.loop", ".train",
                                    ".inference.streaming",
                                    ".inference.multi_stream",
@@ -118,6 +119,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("argv", [["chip_smoke.py", "--only", "serve-s2"],
                                   ["chip_smoke.py", "--only", "live"],
+                                  ["chip_smoke.py", "--only", "tensor"],
                                   ["k3_variants.py"], ["k2_variants.py"]])
 def test_card_scripts_refuse_to_run_without_a_card(argv):
     """The other ways to run the card scripts exit non-zero too, without a

@@ -115,11 +115,11 @@ def test_loud_failures_match_jax(case):
 
 
 @pytest.mark.parametrize("kw,error,match", [
-    (dict(tp=2), NotImplementedError, "not ported"),
+    (dict(tp=2), ValueError, "mesh 1x2 needs 2 devices, have 1"),
     (dict(dp=2), ValueError, "mesh 2x1 needs 2 devices, have 1")])
 def test_parallel_configs_raise(kw, error, match):
-    """tp != 1 is not ported; dp = 2 with no process group is JAX's mesh
-    error (one rank, no fallback to a single process)."""
+    """tp = 2 or dp = 2 with no process group is JAX's mesh error (one
+    rank, no fallback to a single process)."""
     with pytest.raises(error, match=match):
         tloop.train_model(Config(**dict(GEOM, **kw)), _clips(), device="cpu")
 

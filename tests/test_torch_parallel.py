@@ -379,7 +379,9 @@ def ranks(tmp_path_factory, jax_init):
 # the mesh
 
 
-@pytest.mark.parametrize("dp,tp,world", [(-1, 1, 4), (2, 1, 4), (8, 1, 4)])
+@pytest.mark.parametrize("dp,tp,world", [(-1, 1, 4), (2, 1, 4), (8, 1, 4),
+                                         (-1, 2, 4), (2, 2, 4), (1, 4, 4),
+                                         (4, 2, 4)])
 def test_make_mesh_matches_jax(dp, tp, world):
     """The mesh arithmetic and error text of JAX's make_mesh, one rank a
     device."""
@@ -395,16 +397,34 @@ def test_make_mesh_matches_jax(dp, tp, world):
     except ValueError as e:
         with pytest.raises(ValueError) as ours:
             make_mesh(Config(dp=dp, tp=tp), world=world)
-        assert str(ours.value) == str(e) == "mesh 8x1 needs 8 devices, have 4"
+        assert str(ours.value) == str(e) == (
+            f"mesh {dp}x{tp} needs {dp * tp} devices, have 4")
         return
     assert make_mesh(Config(dp=dp, tp=tp), world=world).shape == theirs
 
 
-def test_mesh_refusals():
-    """tp > 1 is not ported; a mesh larger than the world raises; a live
-    group's mesh must use every rank; batches split into equal shares."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_mesh(Config(tp=2), world=4)
+def test_mesh_refusals(monkeypatch):
+    """tp = 2 or dp = 2 with no process group is JAX's mesh error; a rank
+    holds whole heads and an equal block of the FFN; a mesh larger than the
+    world raises; a live group's mesh must use every rank (a world that is
+    not dp · tp); batches split into equal shares."""
+    from types import SimpleNamespace
+
+    from neurosync_trainer_lite_tpu_torch.config import check_tp_split
+
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
+        make_mesh(Config(tp=2))
+    with pytest.raises(ValueError, match="num_heads 16 is not a multiple of "
+                                         "tp 3"):
+        make_mesh(Config(tp=3), world=3)
+    with pytest.raises(ValueError, match="ffn_dim 6 is not a multiple of "
+                                         "tp 4"):
+        check_tp_split(SimpleNamespace(num_heads=4, ffn_dim=6), 4)
+    with monkeypatch.context() as m:       # a live group of 4 ranks
+        m.setattr(distributed, "world_size", lambda: 4)
+        with pytest.raises(ValueError, match="mesh 1x2 uses 2 of the 4 "
+                                             "ranks: launch 2 processes"):
+            make_mesh(Config(dp=1, tp=2))
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         make_mesh(Config(dp=2))
     assert make_mesh(Config()).shape == {"data": 1, "model": 1}
