@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only live       # phases 1, 2 and 7c alone
     python3 chip_smoke.py --only parallel   # phases 1, 2 and 12 alone
     python3 chip_smoke.py --only tensor     # phases 1, 2 and 13 alone
+    python3 chip_smoke.py --only compat     # phases 1, 2 and 14 alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -138,7 +139,9 @@ exits non-zero before its result line.
    device frontend), validating on dataset/test_set, 2 epochs and a resume
    for a third; losses finite and falling, batch_step and Adam's count
    continuing, checkpoints, backups, validation CSVs and stats written,
-   model.pth serving the test clip; then the CLI
+   model.pth serving the test clip; (c5) utils/epoch_stats.py reading the
+   3 epochs' stats files (61 dimensions each) and its plot raising
+   ImportError without matplotlib; then the CLI
    (python -m neurosync_trainer_lite_tpu_torch.train) for 2 steps.
 12. Data parallelism (parallel/), every rank a subprocess of this script
    (--parallel-worker) with a deadline and a process-group timeout, the
@@ -190,13 +193,29 @@ exits non-zero before its result line.
    serving test_set/audio.wav, then a resume at tp 1 from its checkpoint.
    The ranks time-share the card and reduce through the host: correctness
    and the reduction's cost, not scaling.
+14. The reference-name surface (compat.py and the tools) at full width.
+   (c1) compat.build_model(training_config) on the card, count_parameters
+   235,472,957, save_final_model then load_model(path, training_config,
+   device="cuda") bitwise equal. (c2) The 30 s request through the
+   reference's call shape, compat.generate_facial_data_from_bytes(wav,
+   model, device=None), at 'auto' and 'pallas' (the main path run,
+   launches counted from zero: K1 50; K1 2 and the K4 forward 24), bitwise
+   equal to inference/api.py's and to generate_facial_data_from_bytes_device;
+   compat.process_audio_features on compat.extract_audio_features'
+   features bitwise equal to pipeline='host'. (c3) 11 steps of (a)'s
+   configuration written as the reference's loop, from
+   compat.prepare_training_components, under StepTimer(sync_every=5): the
+   first 6 losses equal make_train_step's from the same weights and seeds,
+   the timer's 10 steps' mean within 15% of phase 8's step (a) median, the
+   scheduler's LR learning_rate * lr_factor. (c4) In a process of its own,
+   two steps of (a) under profile_trace: trace.json names K1's rope_rows.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
 runs, the serving runs, the live runs, one training step at each
-configuration and the parallel and tensor runs (every rank's launches),
-each counted from zero; launches_by_path: each run's own count); the last
-line the result.
+configuration, the parallel and tensor runs (every rank's launches) and
+the compat requests, each counted from zero; launches_by_path: each run's
+own count); the last line the result.
 """
 
 from __future__ import annotations
@@ -269,6 +288,14 @@ TP_COLLECTIVES = {"forward": 8 * 2 + 8 * 3, "backward": 8 * 4 + 8 * 7,
                   "grad_norm": 1}
 #: (t2)'s fp32 MeshDecoder against one process, a share of max|out|
 TP_DECODE_FP32_LIMIT = 1e-5
+#: the compat phase (14): the full-width parameter count (PERF.md §4);
+#: (c3)'s StepTimer steps and cadence, the port's steps it is held against,
+#: and how far the timer's mean may lie from step (a)'s median (the card
+#: is ~97% busy at (a), so host and device time agree; a timer that did
+#: not wait for the card would read far lower)
+FULL_WIDTH_PARAMETERS = 235_472_957
+COMPAT_TIMER_STEPS, COMPAT_SYNC_EVERY, COMPAT_REF_STEPS = 11, 5, 6
+COMPAT_TIMER_LIMIT = 0.15
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
 #: (s2) the 30 s request at frame_size 512 (4 chunks)
@@ -365,6 +392,16 @@ def bound(bytes_moved: float, flops: float,
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = max(flops / FP32_FLOP_PER_S, bf16_flops / BF16_FLOP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def seeded_wav(np, sr: int) -> bytes:
+    """The timed request: SERVE_SECONDS of seeded noise as a 16-bit WAV at
+    sr, as bench.py --mode infer serves."""
+    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
+
+    rng = np.random.default_rng(0)
+    return audio_to_bytes(rng.standard_normal(sr * SERVE_SECONDS)
+                          .astype(np.float32) * 0.3, sr)
 
 
 def serving_shape(cfg=None) -> tuple[int, int, int, int]:
@@ -1081,7 +1118,6 @@ def serve_long(torch, np):
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
         Seq2Seq, init_seq2seq)
     from neurosync_trainer_lite_tpu_torch.ops import kernels
-    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
 
     cfg = Config(dropout=0.0, frame_size=512)
     models = {"auto": init_seq2seq(cfg, torch.Generator(device="cuda")
@@ -1090,9 +1126,7 @@ def serve_long(torch, np):
         models[impl] = Seq2Seq(cfg.replace(attention_impl=impl), "cuda")
         models[impl].load_state_dict(models["auto"].state_dict())
         models[impl].eval()
-    rng = np.random.default_rng(0)
-    wav = audio_to_bytes(rng.standard_normal(cfg.sr * SERVE_SECONDS)
-                         .astype(np.float32) * 0.3, cfg.sr)
+    wav = seeded_wav(np, cfg.sr)
     batch = serving_shape(cfg)[0]
     print(f"serve (s2): frame_size {cfg.frame_size}, overlap {cfg.overlap}: "
           f"the 30 s request decodes as [{batch}, {cfg.frame_size}]",
@@ -1555,7 +1589,6 @@ def serve(torch, np):
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
         Seq2Seq, init_seq2seq)
     from neurosync_trainer_lite_tpu_torch.ops import kernels
-    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
 
     cfg = Config(dropout=0.0)
     models = {"auto": init_seq2seq(cfg, torch.Generator(device="cuda")
@@ -1568,13 +1601,10 @@ def serve(torch, np):
           f"{cfg.n_layers}+{cfg.n_layers} layers, {cfg.num_heads} heads, "
           f"bf16 over fp32", flush=True)
 
-    rng = np.random.default_rng(0)
     clips = {
         "test_set/audio.wav": (REPO / "dataset" / "test_set"
                                / "audio.wav").read_bytes(),
-        "30 s seeded": audio_to_bytes(   # as bench.py --mode infer
-            rng.standard_normal(cfg.sr * SERVE_SECONDS).astype(np.float32)
-            * 0.3, cfg.sr),
+        "30 s seeded": seeded_wav(np, cfg.sr),
     }
     expected = {"auto": {"rope_rotate": 50},
                 "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
@@ -1746,7 +1776,7 @@ def train(torch):
     """Phase 8: the full-width training step at (a) 'auto', dropout 0.3 and
     (b) 'pallas', dropout 0, from the same seeded weights and batch; then
     (e) and the long windows. Returns (the main path's launch counts by
-    run, {'samples_per_s', 'peak'} of (a))."""
+    run, {'samples_per_s', 'peak', 'median_ms'} of (a))."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
     from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
@@ -1773,7 +1803,8 @@ def train(torch):
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
         main_path[f"train ({name})"] = launches
         if name == "a":
-            step_a = {"samples_per_s": cfg.batch_size / med, "peak": peak}
+            step_a = {"samples_per_s": cfg.batch_size / med, "peak": peak,
+                      "median_ms": med * 1e3}
         else:
             kernel_shares(f"step at {label}", profiled, {
                 "K4 backward": (r"attn_bwd_mma_kernel", r"attn_bwd_kernel<"),
@@ -2022,6 +2053,7 @@ def train_entry_point(torch, np, step_a) -> None:
               and len(stats) == len(csvs) == 3,
               f"(f) meta.json, {len(backups)} backups, model.pth, "
               f"{len(csvs)} validation CSVs and {len(stats)} stats files")
+        epoch_stats_readable(os.path.join(cfg.plots_dir, "stats"), 3)
         model = load_model(cfg.model_path, Config(), device="cuda")
         frames = generate_facial_data_from_bytes(
             (test_set / "audio.wav").read_bytes(), model, Config())
@@ -2286,12 +2318,9 @@ def dp_decode(torch, np, mesh, tag: str = "(p3)",
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
         Seq2Seq, init_seq2seq)
     from neurosync_trainer_lite_tpu_torch.ops import kernels
-    from neurosync_trainer_lite_tpu_torch.utils.audio_io import audio_to_bytes
 
     cfg = Config(dropout=0.0)
-    rng = np.random.default_rng(0)
-    wav = audio_to_bytes(rng.standard_normal(cfg.sr * SERVE_SECONDS)
-                         .astype(np.float32) * 0.3, cfg.sr)
+    wav = seeded_wav(np, cfg.sr)
     feats, _ = extract_audio_features(wav, cfg.sr, from_bytes=True,
                                       device="cuda")
     weights = init_seq2seq(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -2474,6 +2503,8 @@ def dp_worker(torch, np, part: str, rank: int, port: int, tmp: str) -> None:
 
     if part == "p1":
         result = dp_p1(torch, port)
+    elif part == "c4":
+        result = compat_profile_worker(torch, tmp)
     elif part.startswith("t"):
         result = tp_worker(torch, np, part, rank, port, tmp)
     else:
@@ -3181,6 +3212,263 @@ def tensor(torch, np) -> tuple[dict, dict, dict]:
 
 
 
+def epoch_stats_readable(stats_dir: str, n_epochs: int) -> None:
+    """(c5) utils/epoch_stats.py on the stats files train_model wrote: every
+    epoch found, 61 dimensions with every metric, NaN-free MAE; the plot
+    raises ImportError where matplotlib is missing (the card's machine) and
+    is written where it is installed."""
+    import importlib.util
+    import os
+
+    from neurosync_trainer_lite_tpu_torch.utils.epoch_stats import (
+        DIMENSION_METRICS, load_stats_history, plot_overall_stats)
+
+    epochs, overall, per_dim = load_stats_history(stats_dir)
+    mae = overall.get("Mean Absolute Error (MAE)", [])
+    check(epochs == list(range(1, n_epochs + 1)) and len(per_dim) == 61
+          and all(set(stats) == set(DIMENSION_METRICS)
+                  and all(len(v) == n_epochs for v in stats.values())
+                  for stats in per_dim.values())
+          and len(mae) == n_epochs and all(math.isfinite(x) for x in mae),
+          f"(c5) load_stats_history finds epochs {epochs} with {len(per_dim)} "
+          f"dimensions of {len(DIMENSION_METRICS)} metrics each; MAE by "
+          f"epoch {[round(x, 4) for x in mae]}")
+    have_matplotlib = importlib.util.find_spec("matplotlib") is not None
+    try:
+        written, raised = plot_overall_stats(stats_dir), None
+    except ImportError as e:
+        written, raised = None, e
+    check((written is not None and os.path.exists(written))
+          if have_matplotlib else raised is not None,
+          f"(c5) plot_overall_stats with matplotlib "
+          f"{'installed: wrote ' + str(written) if have_matplotlib else 'missing: raised ImportError (' + str(raised) + ')'}")
+
+
+def compat_step_timer(torch, compat, step_a) -> None:
+    """(c3) COMPAT_TIMER_STEPS steps of step (a)'s configuration written as
+    the reference's loop writes them, from compat.prepare_training_components'
+    criterion and optimizer, under StepTimer(sync_every=COMPAT_SYNC_EVERY).
+    Their losses must equal the port's make_train_step from the same
+    weights, batch and dropout seeds; the timer's mean must lie within
+    COMPAT_TIMER_LIMIT of phase 8's step (a) median (or, run alone, of the
+    port's steps timed here); the scheduler's LR must be lr_factor's."""
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+        Seq2Seq, init_seq2seq)
+    from neurosync_trainer_lite_tpu_torch.training.optim import (
+        clip_by_global_norm_, global_norm, lr_factor)
+    from neurosync_trainer_lite_tpu_torch.training.step import (
+        init_train_state, make_train_step)
+    from neurosync_trainer_lite_tpu_torch.utils.profiling import StepTimer
+
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    src, trg = train_batch(torch, cfg, gen)
+
+    state = init_train_state(cfg, 1000, device="cuda", state_dict=weights)
+    step = make_train_step(cfg)
+    seeds = torch.Generator().manual_seed(4)
+    ref_losses, ref_times = [], []
+    for _ in range(COMPAT_REF_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_losses.append(float(step(state, src, trg, seeds)[1]))
+        ref_times.append(time.perf_counter() - t0)
+    del state, step
+    torch.cuda.empty_cache()
+
+    model = Seq2Seq(cfg, "cuda")
+    model.load_state_dict(weights)
+    model.train()
+    del weights
+    criterion, optimizer, scheduler = compat.prepare_training_components(
+        compat.training_config, model)
+    seeds = torch.Generator().manual_seed(4)
+    timer = StepTimer(sync_every=COMPAT_SYNC_EVERY)
+    losses = []
+    torch.cuda.synchronize()
+    for _ in range(COMPAT_TIMER_STEPS):
+        optimizer.zero_grad(set_to_none=True)
+        loss = criterion(model(src, seeds), trg)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        clip_by_global_norm_(grads, global_norm(grads), cfg.grad_clip)
+        optimizer.step()
+        timer.step(loss)
+        losses.append(loss.detach())
+    summary = timer.summary()
+    losses = [float(x) for x in losses]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    check(gap <= 1e-6, f"(c3) the compat criterion and optimizer's first "
+          f"{COMPAT_REF_STEPS} losses equal make_train_step's from the same "
+          f"weights, batch and seeds: largest relative gap {gap:.3e} "
+          f"({'bitwise' if losses[:COMPAT_REF_STEPS] == ref_losses else 'not bitwise'})")
+    own_ms = statistics.median(ref_times[1:]) * 1e3
+    ref_ms, ref_what = ((step_a["median_ms"], "phase 8's step (a) median")
+                        if step_a else (own_ms, "the port's steps here"))
+    phase8 = (f"phase 8's step (a) median {step_a['median_ms']:.3f} ms; "
+              if step_a else "")
+    print(f"(c3) StepTimer(sync_every={COMPAT_SYNC_EVERY}) over "
+          f"{COMPAT_TIMER_STEPS} steps: {json.dumps(summary)}; {phase8}"
+          f"make_train_step here {own_ms:.3f} ms (median of "
+          f"{COMPAT_REF_STEPS - 1} synchronised steps)", flush=True)
+    check(summary["steps"] == COMPAT_TIMER_STEPS - 1
+          and abs(summary["mean_ms"] - ref_ms) <= COMPAT_TIMER_LIMIT * ref_ms,
+          f"(c3) StepTimer records {summary['steps']} steps, mean "
+          f"{summary['mean_ms']:.3f} ms within {COMPAT_TIMER_LIMIT:.0%} of "
+          f"{ref_what}, {ref_ms:.3f} ms")
+    lrs = []
+    for c in range(4):
+        lrs.append((optimizer.param_groups[0]["lr"],
+                    cfg.learning_rate * lr_factor(c, cfg)))
+        scheduler.step()
+    check(all(a == b for a, b in lrs),
+          f"(c3) the compat scheduler's LR after 0-3 steps equals "
+          f"learning_rate * lr_factor: {lrs}")
+
+
+def compat_profile_worker(torch, tmp: str) -> dict:
+    """(c4), in a process of its own (late in the whole script's process the
+    profiler saw no kernels): two steps of step (a) under
+    utils/profiling.py:profile_trace after one untraced step; returns the
+    trace file's size and the kernel events naming K1's rope_rows."""
+    import os
+
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
+    from neurosync_trainer_lite_tpu_torch.training.step import (
+        init_train_state, make_train_step)
+    from neurosync_trainer_lite_tpu_torch.utils.profiling import (
+        TRACE_FILE, profile_trace)
+
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = init_train_state(cfg, 1000, generator=gen, device="cuda")
+    src, trg = train_batch(torch, cfg, gen)
+    step = make_train_step(cfg)
+    seeds = torch.Generator().manual_seed(4)
+    float(step(state, src, trg, seeds)[1])
+    trace_dir = os.path.join(tmp, "c4_trace")
+    with profile_trace(trace_dir):
+        for _ in range(2):
+            step(state, src, trg, seeds)
+        torch.cuda.synchronize()
+    path = os.path.join(trace_dir, TRACE_FILE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "rope_rows" in e.get("name", "")]
+    return {"bytes": os.path.getsize(path), "kernel_events": len(kernels),
+            "k1_events": len(k1),
+            "k1_names": sorted({e["name"] for e in k1})}
+
+
+def compat_surface(torch, np, step_a=None) -> dict:
+    """Phase 14: the reference-name surface at full width (Config()).
+    (c1) compat.build_model, count_parameters, save_final_model and
+    load_model; (c2) the 30 s request through compat's reference call shape
+    at 'auto' and 'pallas' (the main path run: launches counted from zero)
+    against inference/api.py, generate_facial_data_from_bytes_device and
+    the host path through compat.extract_audio_features and
+    compat.process_audio_features, all bitwise; (c3) StepTimer over the
+    compat training components; (c4) profile_trace in a subprocess.
+    ((c5) runs inside phase 11, on the stats train_model writes.) Returns
+    the main path run's launch counts."""
+    import os
+    import tempfile
+
+    from neurosync_trainer_lite_tpu_torch import compat
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        generate_facial_data_from_bytes)
+    from neurosync_trainer_lite_tpu_torch.inference.device_pipeline import (
+        generate_facial_data_from_bytes_device)
+    from neurosync_trainer_lite_tpu_torch.models import count_parameters
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg_dict = compat.training_config
+    t0 = time.perf_counter()
+    built = compat.build_model(cfg_dict)
+    torch.cuda.synchronize()
+    n = count_parameters(built)
+    check(next(built.parameters()).is_cuda and n == FULL_WIDTH_PARAMETERS,
+          f"(c1) compat.build_model(training_config) on the card in "
+          f"{time.perf_counter() - t0:.3f} s: count_parameters {n} == "
+          f"{FULL_WIDTH_PARAMETERS}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compat_") as tmp:
+        path = os.path.join(tmp, "model.pth")
+        compat.save_final_model(built, cfg_dict, path)
+        models = {impl: compat.load_model(
+            path, {**cfg_dict, "attention_impl": impl}, device="cuda")
+            for impl in ("auto", "pallas")}
+    want, got = built.state_dict(), models["auto"].state_dict()
+    check(want.keys() == got.keys()
+          and all(torch.equal(v, got[k]) for k, v in want.items()),
+          f"(c1) save_final_model, then load_model(path, training_config, "
+          f"device='cuda'): all {len(want)} leaves bitwise equal")
+    del built, want, got
+
+    cfg = Config.from_dict(cfg_dict)
+    wav = seeded_wav(np, cfg.sr)
+    expected = {"auto": {"rope_rotate": 50},
+                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
+    for model in models.values():      # warm-up
+        compat.generate_facial_data_from_bytes(wav, model, device=None)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    served, launches = {}, {}
+    for impl, model in models.items():
+        before = dict(kernels.LAUNCHES)
+        served[impl] = compat.generate_facial_data_from_bytes(wav, model,
+                                                              device=None)
+        launches[impl] = {name: count - before.get(name, 0)
+                          for name, count in kernels.LAUNCHES.items()
+                          if count - before.get(name, 0)}
+    main_path = dict(kernels.LAUNCHES)
+    for impl, model in models.items():
+        out = served[impl]
+        check(launches[impl] == expected[impl],
+              f"(c2) kernel launches of the compat request at '{impl}': "
+              f"{launches[impl]} == {expected[impl]}")
+        direct = generate_facial_data_from_bytes(wav, model, cfg)
+        entry = generate_facial_data_from_bytes_device(wav, model, cfg)
+        check(isinstance(out, np.ndarray) and out.ndim == 2
+              and out.shape[1] == 61 and bool(np.isfinite(out).all())
+              and np.array_equal(out, direct)
+              and np.array_equal(entry, direct),
+              f"(c2) '{impl}': compat.generate_facial_data_from_bytes(wav, "
+              f"model, device=None) {out.shape} and "
+              f"generate_facial_data_from_bytes_device bitwise equal to "
+              f"inference/api.py's")
+        feats, _ = compat.extract_audio_features(wav, cfg.sr,
+                                                 from_bytes=True)
+        host = compat.process_audio_features(feats, model, device=None)
+        direct = generate_facial_data_from_bytes(wav, model, cfg,
+                                                 pipeline="host")
+        check(np.array_equal(host, direct),
+              f"(c2) '{impl}': compat.process_audio_features on "
+              f"compat.extract_audio_features' {feats.shape} features "
+              f"bitwise equal to pipeline='host'")
+    del models
+    torch.cuda.empty_cache()
+
+    compat_step_timer(torch, compat, step_a)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c4_") as tmp:
+        (traced,) = dp_spawn("c4", 1, tmp)
+    check(traced["k1_events"] > 0,
+          f"(c4) profile_trace of 2 steps of (a) in a process of its own: "
+          f"trace.json of {traced['bytes']} bytes, {traced['kernel_events']} "
+          f"kernel events, {traced['k1_events']} of K1 "
+          f"({', '.join(traced['k1_names'])})")
+    print(f"phase 14 (compat): {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    return {"compat": main_path}
+
+
 def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
     """The card's busy share and top kernels of one call (profiler on).
     Returns the call's device ms by kernel name."""
@@ -3213,11 +3501,12 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("serve-s2", "live", "parallel", "tensor"),
+        "--only", choices=("serve-s2", "live", "parallel", "tensor",
+                           "compat"),
         help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
-             "(parallel) or 13 (tensor) alone, printing no result line: to "
-             "time the (s2) request or the live run of two trees side by "
-             "side")
+             "(parallel), 13 (tensor) or 14 (compat) alone, printing no "
+             "result line: to time the (s2) request or the live run of two "
+             "trees side by side")
     parser.add_argument("--parallel-worker", nargs=4,
                         metavar=("PART", "RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
@@ -3250,7 +3539,7 @@ def main() -> int:
     sass_counts(kernels)
     if args.only:
         {"serve-s2": serve_long, "live": live, "parallel": parallel,
-         "tensor": tensor}[args.only](torch, np)
+         "tensor": tensor, "compat": compat_surface}[args.only](torch, np)
         print(card, flush=True)
         return 0
 
@@ -3301,6 +3590,7 @@ def main() -> int:
     paths.update(parallel(torch, np))
     tp_paths, tp_timed, tp_err = tensor(torch, np)
     paths.update(tp_paths)
+    paths.update(compat_surface(torch, np, step_a))
     for name, by in tp_timed.items():
         records[name].setdefault("by_shape", {}).update(by)
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],

@@ -13,9 +13,14 @@ dp equal shares (check_batch_split), and a rank of the 'model' axis holds
 whole heads and an equal block of the FFN (check_tp_split). The model
 reads remat, remat_scope, remat_layers
 and remat_policy (per-layer torch.utils.checkpoint, models/seq2seq.py);
-unroll_residents is semantics only there. The other knobs (the data
-loop's, prng_impl, auto_remat, async_checkpoint, ...) are kept for that
-compatibility and are read by no module of the port yet.
+unroll_residents is semantics only there. The training loop and its data
+(training/loop.py, data/windowing.py) read mode, auto_remat (the remat
+planner), async_checkpoint (checkpoint and model.pth writes in a thread),
+validation_interval, val_split, max_steps_per_epoch and the paths.
+prng_impl is read by no module: it
+picks JAX's PRNG implementation, which has no torch counterpart (dropout
+seeds come from a torch.Generator, ops/attention.py). use_multi_gpu and
+num_gpus are kept for the reference's config dict only.
 
 attention_impl on the card: 'pallas' selects the fused RoPE-attention CUDA
 kernels (ops/fused_attention.py) where their shared-memory gate holds and

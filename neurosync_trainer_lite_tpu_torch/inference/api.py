@@ -6,7 +6,8 @@ device, one download); pipeline='host' runs the reference's orchestration
 (features downloaded, chunked on the host, uploaded, decoded). A failure on
 either path raises: the JAX package's breaker, which serves from the host
 path after device failures, is not ported, so a device fault is never
-hidden behind a slower answer.
+hidden behind a slower answer. Its reset, reset_device_pipeline_breaker,
+has nothing to reset here and is not ported either.
 """
 
 from __future__ import annotations
@@ -35,20 +36,17 @@ def generate_facial_data_from_bytes(audio_bytes: bytes, model, cfg: Config,
     Runs where `device` says (the CUDA card by default); the model's weights
     must already live there.
     """
-    device = check_model_device(model, device)
     if pipeline == "device":
-        y, normalized = dp.decode_bytes_to_waveform(audio_bytes, cfg)
-        out = dp.infer_waveform_device(y, model, cfg, normalized=normalized)
-        if out is None:
-            return [], np.array([])
-    elif pipeline == "host":
-        audio_features, y = extract_audio_features(
-            audio_bytes, sr=cfg.sr, from_bytes=True, device=device)
-        if audio_features is None or y is None:
-            return [], np.array([])
-        out = process_audio_features(audio_features, model, cfg)
-    else:
+        return dp.generate_facial_data_from_bytes_device(
+            audio_bytes, model, cfg, use_smoothing, device)
+    if pipeline != "host":
         raise ValueError(f"pipeline must be 'device' or 'host', got {pipeline!r}")
+    device = check_model_device(model, device)
+    audio_features, y = extract_audio_features(
+        audio_bytes, sr=cfg.sr, from_bytes=True, device=device)
+    if audio_features is None or y is None:
+        return [], np.array([])
+    out = process_audio_features(audio_features, model, cfg)
     if use_smoothing:
         out = smooth_by_averaging_pairs(out)
     return out

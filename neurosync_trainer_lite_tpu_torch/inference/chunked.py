@@ -24,7 +24,10 @@ import numpy as np
 import torch
 
 from neurosync_trainer_lite_tpu_torch.config import Config
-from neurosync_trainer_lite_tpu_torch.data.processing import BLENDSHAPE_SCALE
+from neurosync_trainer_lite_tpu_torch.data.processing import (
+    BLENDSHAPE_SCALE,
+    SPECIFIED_COLUMNS,
+)
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
 from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
     all_gather_rows,
@@ -57,6 +60,29 @@ def blend_chunks(chunk1: np.ndarray, chunk2: np.ndarray,
     blended[-actual_overlap:] = (
         (1 - alpha) * chunk1[-actual_overlap:] + alpha * chunk2[:actual_overlap])
     return np.vstack((blended, chunk2[actual_overlap:]))
+
+
+def zero_columns(data: np.ndarray) -> np.ndarray:
+    """A copy with the known-noise Lite dims zeroed (reference:
+    audio_processing.py:114-121, a research helper the serving path does
+    not call)."""
+    modified = np.copy(data)
+    modified[:, list(SPECIFIED_COLUMNS)] = 0
+    return modified
+
+
+def add_specified_dimensions_back(modified_data: np.ndarray) -> np.ndarray:
+    """Reduced outputs re-expanded to the original 68 dims, zeros in the
+    removed columns (reference: audio_processing.py:123-140, a research
+    helper). Its column list differs from zero_columns'; the reference's
+    two lists are kept as they are."""
+    original_dim = 68
+    columns_to_remove = [0, 1, 2, 3, 4, 7, 8, 9, 10, 11,
+                         51, 52, 53, 54, 55, 56, 57, 58, 59, 60]
+    new_data = np.zeros((modified_data.shape[0], original_dim))
+    remaining = [c for c in range(original_dim) if c not in columns_to_remove]
+    new_data[:, remaining] = modified_data
+    return new_data
 
 
 def _chunk_starts(num_frames: int, frame_length: int, overlap: int):

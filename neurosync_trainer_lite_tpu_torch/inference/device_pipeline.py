@@ -41,7 +41,10 @@ from neurosync_trainer_lite_tpu_torch.ops.frontend import (
     widen_and_normalize,
 )
 from neurosync_trainer_lite_tpu_torch.utils.audio_io import load_audio_from_bytes
-from neurosync_trainer_lite_tpu_torch.utils.device import module_device
+from neurosync_trainer_lite_tpu_torch.utils.device import (
+    check_model_device,
+    module_device,
+)
 
 
 def _gather_rows(num_frames: int, frame_length: int, overlap: int):
@@ -116,3 +119,25 @@ def decode_bytes_to_waveform(audio_bytes: bytes, cfg: Config):
         return i16, False
     y, _ = load_audio_from_bytes(audio_bytes, cfg.sr)
     return y, True
+
+
+def generate_facial_data_from_bytes_device(audio_bytes: bytes, model,
+                                           cfg: Config,
+                                           use_smoothing: bool = False,
+                                           device=None):
+    """Bytes-in serving on the device pipeline: [T, 61] frames, or the
+    bytes API's ([], np.array([])) for a clip too short to featurise.
+    inference/api.py:generate_facial_data_from_bytes at pipeline='device'
+    is this function; `device` is checked against the model's weights as
+    there."""
+    from neurosync_trainer_lite_tpu_torch.inference.api import (
+        smooth_by_averaging_pairs)
+
+    check_model_device(model, device)
+    y, normalized = decode_bytes_to_waveform(audio_bytes, cfg)
+    out = infer_waveform_device(y, model, cfg, normalized=normalized)
+    if out is None:
+        return [], np.array([])
+    if use_smoothing:
+        out = smooth_by_averaging_pairs(out)
+    return out

@@ -442,3 +442,14 @@ def init_seq2seq(cfg: Config, generator: torch.Generator, device=None,
             module.weight.fill_(1.0)
             module.bias.zero_()
     return model
+
+
+def count_parameters(model: nn.Module) -> int:
+    """The model's parameter count. Under a mesh that shards the model, the
+    full model's: each leaf sharded over 'model' counts at its global
+    shape (parallel/mesh.py:param_spec), as the JAX package's .size counts
+    a GSPMD-sharded array, and the replicated leaves once."""
+    mesh = getattr(model, "mesh", None)
+    tp = mesh.tp if model_sharded(mesh) else 1
+    return sum(p.numel() * (1 if param_spec(k) is None else tp)
+               for k, p in model.named_parameters())

@@ -8,7 +8,8 @@ RoPE, head_dim for the per-head one). The rotation keeps full-width layouts:
     out = x * cos_full + roll(x, -1) * A + roll(x, +1) * B
 
 with A = -sin on even lanes and B = +sin on odd lanes. Per-head RoPE runs
-before the head split, with the head_dim tables tiled across the heads.
+before the head split, with the head_dim tables tiled across the heads
+(rope_qk_preheads), or on q and k already split into heads (rope_qk).
 
 The tables are always fp32. CUDA tensors go through kernel K1
 (ops/rope_kernel.py); CPU tensors through its plain version, which keeps
@@ -80,3 +81,10 @@ def rope_qk_preheads(q: torch.Tensor, k: torch.Tensor, num_heads: int):
     tq = rope_tables(q.shape[-2], head_dim, q.device, tile=num_heads)
     tk = rope_tables(k.shape[-2], head_dim, k.device, tile=num_heads)
     return apply_rope(q, tq), apply_rope(k, tk)
+
+
+def rope_qk(q: torch.Tensor, k: torch.Tensor):
+    """Per-head RoPE on already-split q, k [B, n_heads, T, head_dim]."""
+    d = q.shape[-1]
+    return (apply_rope(q, rope_tables(q.shape[-2], d, q.device)),
+            apply_rope(k, rope_tables(k.shape[-2], d, k.device)))

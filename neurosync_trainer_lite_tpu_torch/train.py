@@ -128,18 +128,14 @@ def _train(cfg, args, joined: bool) -> None:
         print(f"warm-starting from {args.init_from_pth}")
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        from neurosync_trainer_lite_tpu_torch.utils.profiling import (
+            TRACE_FILE, profile_trace)
 
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with profile(activities=activities) as prof:
+        with profile_trace(args.profile):
             train_model(cfg.replace(n_epochs=min(cfg.n_epochs, 1)),
                         init_state_dict=init_sd, device=device)
-        os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, "trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"profiler trace written to {trace}")
+        print(f"profiler trace written to "
+              f"{os.path.join(args.profile, TRACE_FILE)}")
         return
     train_model(cfg, init_state_dict=init_sd, device=device)
 

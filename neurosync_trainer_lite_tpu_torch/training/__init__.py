@@ -8,6 +8,7 @@ from neurosync_trainer_lite_tpu_torch.training.step import (
     make_eval_step,
     make_train_step,
 )
+from neurosync_trainer_lite_tpu_torch.training.loop import train_model
 
 __all__ = [
     "make_optimizer",
@@ -16,4 +17,5 @@ __all__ = [
     "init_train_state",
     "make_train_step",
     "make_eval_step",
+    "train_model",
 ]

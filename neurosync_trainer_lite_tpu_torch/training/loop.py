@@ -53,12 +53,12 @@ from neurosync_trainer_lite_tpu_torch.data.windowing import (
     prepare_datasets,
     to_device,
 )
-from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
-from neurosync_trainer_lite_tpu_torch.parallel import distributed
-from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
-    param_spec,
-    resolve_mesh,
+from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+    Seq2Seq,
+    count_parameters,
 )
+from neurosync_trainer_lite_tpu_torch.parallel import distributed
+from neurosync_trainer_lite_tpu_torch.parallel.mesh import resolve_mesh
 from neurosync_trainer_lite_tpu_torch.training.checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -361,10 +361,8 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
                              device=device, state_dict=init_state_dict,
                              mesh=mesh)
     if verbose:   # the full model's, counting each sharded leaf whole
-        tp = 1 if state.model.mesh is None else state.model.mesh.tp
-        n_params = sum(p.numel() * (1 if param_spec(k) is None else tp)
-                       for k, p in state.model.named_parameters())
-        print(f"Total number of parameters: {n_params}")
+        print(f"Total number of parameters: "
+              f"{count_parameters(state.model)}")
         if mesh is not None:
             print(f"Rank mesh: {mesh.shape}, data index {mesh.data_index}, "
                   f"model index {mesh.model_index}")

@@ -1,14 +1,17 @@
 """Audio decoding and encoding without librosa (the port's own copy).
 
 The WAV, float-WAV and ffmpeg decoders, resampling, the path and bytes
-loaders and the WAV writers of neurosync_trainer_lite_tpu/utils/audio_io.py
-(playback is not ported yet):
+loaders, the WAV writers and playback of
+neurosync_trainer_lite_tpu/utils/audio_io.py:
 
 - PCM WAV (8/16/24/32-bit int) decoded with the stdlib ``wave`` module and
   numpy, IEEE-float WAV (32/64-bit) by a RIFF chunk walk.
 - Other containers decoded by piping through ffmpeg.
 - Resampling by polyphase filtering (scipy.signal.resample_poly).
 - Peak normalisation to [-1, 1] for the bytes loader.
+- Playback through pygame where it is installed, for the NeuroSync Player's
+  surface: a host-side convenience, so without pygame (or on any playback
+  error) it prints one line and returns.
 """
 
 from __future__ import annotations
@@ -144,6 +147,15 @@ def load_audio_from_bytes(audio_bytes: bytes, sr: int = 88200
     return _peak_normalized(*load_audio(audio_bytes, sr))
 
 
+def load_audio_file_from_memory(audio_bytes: bytes, sr: int = 88200
+                                ) -> tuple[np.ndarray, int]:
+    """The reference's name for the bytes loader (load_audio.py:34-43):
+    decode, peak-normalise, report the rate."""
+    y, sr = load_audio_from_bytes(audio_bytes, sr)
+    print(f"Loaded audio data with sample rate {sr}")
+    return y, sr
+
+
 def _write_wav(target, y: np.ndarray, sr: int) -> None:
     pcm = np.clip(np.asarray(y, np.float64) * 32767.0, -32768, 32767).astype("<i2")
     with wave.open(target, "wb") as w:
@@ -163,3 +175,45 @@ def audio_to_bytes(y: np.ndarray, sr: int) -> bytes:
     buf = io.BytesIO()
     _write_wav(buf, y, sr)
     return buf.getvalue()
+
+
+def _play(source, start_event, label: str) -> None:
+    """Playback core (reference: play_audio.py:6-52): init the mixer, load,
+    wait for the Player's start event, block until done; a WAV pygame
+    cannot read is skipped, as the reference skips it."""
+    try:
+        import pygame
+    except ImportError:
+        print(f"{label}: pygame not installed; skipping playback")
+        return
+    try:
+        pygame.mixer.init()
+        pygame.mixer.music.load(source)
+        if start_event is not None:
+            start_event.wait()
+        pygame.mixer.music.play()
+        while pygame.mixer.music.get_busy():
+            pygame.time.Clock().tick(10)
+    except pygame.error as e:
+        if "Unknown WAVE format" in str(e):
+            print("Unknown WAVE format encountered. "
+                  "Skipping to the next item in the queue.")
+        else:
+            print(f"Error in {label}: {e}")
+    except Exception as e:  # noqa: BLE001 — playback must never kill a session
+        print(f"Error in {label}: {e}")
+
+
+def play_audio_bytes(audio_bytes: bytes, start_event=None) -> None:
+    """Play in-memory encoded audio (reference: play_audio.py:6-25)."""
+    _play(io.BytesIO(audio_bytes), start_event, "play_audio_bytes")
+
+
+def play_audio_from_memory(audio_data: bytes, start_event=None) -> None:
+    """The reference's second name for it (play_audio.py:27-44)."""
+    _play(io.BytesIO(audio_data), start_event, "play_audio_from_memory")
+
+
+def play_audio_from_path(audio_path: str, start_event=None) -> None:
+    """Play an audio file from disk (reference: play_audio.py:46-52)."""
+    _play(audio_path, start_event, "play_audio_from_path")

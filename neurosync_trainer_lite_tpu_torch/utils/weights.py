@@ -7,6 +7,14 @@ package's stacked parameter pytree, given as numpy arrays, onto those keys
 (JAX linears are [in, out], torch's [out, in]), so both packages can run the
 same weights.
 
+The JAX module's names, and what takes their place here:
+  params_to_state_dict, state_dict_to_params  the port's model already is
+      a state dict (Seq2Seq.state_dict / load_state_dict); params_from_jax
+      carries a JAX pytree in
+  save_torch_model   training/checkpoint.py:save_final_model
+  load_torch_model   load_model below
+  torch_available    always true in the port
+
 Key mapping (reference module names ← JAX pytree paths):
   encoder.embedding                               ← encoder/embedding
   encoder.transformer_encoder.{i}.self_attn.{q,k,v,out}_linear

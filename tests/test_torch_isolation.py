@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from neurosync_trainer_lite_tpu_torch import compat
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.data.processing import extract_audio_features
 from neurosync_trainer_lite_tpu_torch.inference.api import (
@@ -74,7 +75,9 @@ bad = sorted(n for n in sys.modules
              or n.startswith(("jax.", "jaxlib.", "optax.",
                               "neurosync_trainer_lite_tpu.", "pandas.",
                               "matplotlib.")))
-need = [pkg.__name__ + m for m in (".ops.flash_attention", ".ops.ffn_bwd",
+need = [pkg.__name__ + m for m in (".compat", ".utils.profiling",
+                                   ".utils.epoch_stats",
+                                   ".ops.flash_attention", ".ops.ffn_bwd",
                                    ".parallel.mesh", ".parallel.distributed",
                                    ".parallel.tensor",
                                    ".training.loop", ".train",
@@ -120,6 +123,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 @pytest.mark.parametrize("argv", [["chip_smoke.py", "--only", "serve-s2"],
                                   ["chip_smoke.py", "--only", "live"],
                                   ["chip_smoke.py", "--only", "tensor"],
+                                  ["chip_smoke.py", "--only", "compat"],
                                   ["k3_variants.py"], ["k2_variants.py"]])
 def test_card_scripts_refuse_to_run_without_a_card(argv):
     """The other ways to run the card scripts exit non-zero too, without a
@@ -160,6 +164,10 @@ ENTRY_POINTS = {
     "init_train_state": lambda: init_train_state(
         CFG, 1, generator=torch.Generator()),
     "train_model": lambda: train_model(CFG),
+    "compat.build_model": lambda: compat.build_model(CFG),
+    "compat.generate_facial_data_from_bytes": lambda: (
+        compat.generate_facial_data_from_bytes(
+            audio_to_bytes(np.zeros(44100), 88200), _cpu_model(), None, CFG)),
     "train.main": lambda: train_main(["--tiny"]),
     "bucketed frontend": lambda: extract_audio_features_bucketed(
         np.zeros(44100, np.float32)),
