@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only parallel   # phases 1, 2 and 12 alone
     python3 chip_smoke.py --only tensor     # phases 1, 2 and 13 alone
     python3 chip_smoke.py --only compat     # phases 1, 2 and 14 alone
+    python3 chip_smoke.py --only tools      # phases 1, 2 and 15 alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -209,13 +210,23 @@ exits non-zero before its result line.
    the timer's 10 steps' mean within 15% of phase 8's step (a) median, the
    scheduler's LR learning_rate * lr_factor. (c4) In a process of its own,
    two steps of (a) under profile_trace: trace.json names K1's rope_rows.
+15. The port's runnable scripts (bench.py and tools/) at full width, as
+   `tools` says: the four bench modes in this process (the main path runs,
+   launches counted from zero: K1 100 a training step, 50 a request and a
+   decode forward), the headline within 10% of phase 8's step (a) median;
+   the bench CLI and --mode infer in processes of their own; serving_soak,
+   serving_knee (--fused 0 and 1), warmup_probe, local_dispatch_probe
+   --device cpu; step_probe at (a), (b), (e) and (c), each with phase 8's
+   or 9's launches a step and within 10% of phase 8's median;
+   data_scale_probe --generate and --measure, and train_scale_run
+   for 20 steps over the generated data.
 
 The line before the last holds the card's name and power limit; the line
 before that the kernels' JSON record (launches: the sum over the main path
 runs, the serving runs, the live runs, one training step at each
 configuration, the parallel and tensor runs (every rank's launches) and
-the compat requests, each counted from zero; launches_by_path: each run's
-own count); the last line the result.
+the compat requests and the bench modes, each counted from zero;
+launches_by_path: each run's own count); the last line the result.
 """
 
 from __future__ import annotations
@@ -296,6 +307,29 @@ TP_DECODE_FP32_LIMIT = 1e-5
 FULL_WIDTH_PARAMETERS = 235_472_957
 COMPAT_TIMER_STEPS, COMPAT_SYNC_EVERY, COMPAT_REF_STEPS = 11, 5, 6
 COMPAT_TIMER_LIMIT = 0.15
+#: phase 15 (the runnable scripts): how far the bench headline and each
+#: step_probe reading may lie from phase 8's synchronised step median of
+#: the same configuration (the card is 88-97% busy there, so an
+#: unsynchronised loop sees about the same device time); a tool's seconds
+TOOLS_AGREEMENT, TOOL_TIMEOUT = 0.10, 600
+TOOLS = "neurosync_trainer_lite_tpu_torch.tools."
+#: step_probe's runs: phase 8's configuration → the probe's flags
+STEP_PROBES = {
+    "a": ["--remat", "0", "--dropout", "0.3"],
+    "b": ["--remat", "0", "--dropout", "0", "--attn", "pallas"],
+    "e": ["--remat", "0", "--dropout", "0.3", "--patch", "ffn-bwd-pallas"],
+    "c": ["--remat", "0", "--dropout", "0", "--t", "512", "--b", "32"],
+}
+#: each step_probe run's kernel launches a step (phase 8's and 9's counts
+#: of the same configuration), read from the probe's stderr
+STEP_PROBE_LAUNCHES = {
+    "a": {"rope_rotate": 100},
+    "b": {"rope_rotate": 52, "fused_rope_attention": 24,
+          "fused_rope_attention_bwd": 24},
+    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16},
+    "c": {"rope_rotate": 100, "flash_attention": 24,
+          "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24},
+}
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
 #: (s2) the 30 s request at frame_size 512 (4 chunks)
@@ -1646,14 +1680,15 @@ def serve(torch, np):
               f"{clip}: 'auto' and 'pallas' agree within 5% of max|out| "
               f"(max abs diff {e}, max|out| {scale})")
 
-    for impl, model in models.items():
-        request_timing(torch, np, model, cfg, clips["30 s seeded"],
-                       f"'{impl}'")
-    return main_path
+    fps = {impl: request_timing(torch, np, model, cfg, clips["30 s seeded"],
+                                f"'{impl}'")
+           for impl, model in models.items()}
+    return main_path, fps
 
 
-def request_timing(torch, np, model, cfg, wav: bytes, label: str) -> None:
-    """The 30 s request's frames/s, its stages, and the card's busy share."""
+def request_timing(torch, np, model, cfg, wav: bytes, label: str) -> float:
+    """The 30 s request's frames/s, its stages, and the card's busy share.
+    Returns the frames/s of the median request."""
     from neurosync_trainer_lite_tpu_torch.inference.api import (
         generate_facial_data_from_bytes)
     from neurosync_trainer_lite_tpu_torch.inference.device_pipeline import (
@@ -1695,6 +1730,7 @@ def request_timing(torch, np, model, cfg, wav: bytes, label: str) -> None:
 
     profile_once(torch, lambda: generate_facial_data_from_bytes(wav, model, cfg),
                  f"request at {label}", top=8)
+    return len(out) / med * 1e3
 
 
 def train_batch(torch, cfg, gen):
@@ -1776,7 +1812,8 @@ def train(torch):
     """Phase 8: the full-width training step at (a) 'auto', dropout 0.3 and
     (b) 'pallas', dropout 0, from the same seeded weights and batch; then
     (e) and the long windows. Returns (the main path's launch counts by
-    run, {'samples_per_s', 'peak', 'median_ms'} of (a))."""
+    run, {'samples_per_s', 'peak', 'median_ms'} of (a) and 'medians_ms',
+    the step median of (a), (b), (c) and (e) by letter)."""
     from neurosync_trainer_lite_tpu_torch.config import Config
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import init_seq2seq
     from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
@@ -1795,13 +1832,14 @@ def train(torch):
           f"{base.learning_rate}, clip {base.grad_clip}, {TRAIN_WARMUP} "
           f"warm-up + {TRAIN_TIMED} timed steps", flush=True)
 
-    main_path, step_a = {}, {}
+    main_path, step_a, medians = {}, {}, {}
     for name, cfg in configs.items():
         label = f"({name}) '{cfg.attention_impl}', dropout {cfg.dropout}"
         launches, _, peak, med, profiled = train_config(
             torch, cfg, weights, src, trg, label, expected[name],
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
         main_path[f"train ({name})"] = launches
+        medians[name] = med * 1e3
         if name == "a":
             step_a = {"samples_per_s": cfg.batch_size / med, "peak": peak,
                       "median_ms": med * 1e3}
@@ -1822,12 +1860,14 @@ def train(torch):
         torch, configs["b"], weights, src, trg, composed="auto",
         kernel="pallas", module=fua, wrapper="fused_rope_attention_bwd_cuda",
         planted=lose_head0_dq, what="K4")
-    main_path.update(train_ffn_fused(torch, configs["a"], weights, src, trg))
-    main_path.update(train_long_windows(torch, weights))
+    main_path.update(train_ffn_fused(torch, configs["a"], weights, src, trg,
+                                     medians))
+    main_path.update(train_long_windows(torch, weights, medians))
+    step_a["medians_ms"] = medians
     return main_path, step_a
 
 
-def train_ffn_fused(torch, cfg, weights, src, trg):
+def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
     """Phase 10 (e): step (a) with the model's FFN routed through ffn_fused
     (seq2seq._ffn rebound, as tools/tpu_probe.py rebinds the JAX model's),
     so that the FFN backward runs K2: K2 = 16 (8 + 8 FFNs) and K1 = 100
@@ -1843,12 +1883,13 @@ def train_ffn_fused(torch, cfg, weights, src, trg):
     label = (f"(e) '{cfg.attention_impl}', dropout {cfg.dropout}, FFN "
              f"backward through K2")
     try:
-        launches, *_, profiled = train_config(
+        launches, _, _, med, profiled = train_config(
             torch, cfg, weights, src, trg, label,
             {"rope_rotate": 100, "ffn_bwd_dh1": 16},
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     finally:
         seq2seq._ffn = default
+    medians["e"] = med * 1e3
     kernel_shares(f"step at {label}", profiled, {
         "K2": (r"ffn_bwd_wgmma_kernel", r"ffn_bwd_wmma_kernel"),
         "K1": (r"rope_rows", None)})
@@ -1875,7 +1916,7 @@ def train_ffn_fused(torch, cfg, weights, src, trg):
     return {"train (e)": launches}
 
 
-def train_long_windows(torch, weights):
+def train_long_windows(torch, weights, medians: dict):
     """Phase 9: the full-width model at long windows, where 'auto' takes
     K3: (c) window 512, batch 32, no remat; (d) window 2048 (MAX_KV_LEN),
     batch 8, with and without remat, and one step each at remat_policy
@@ -1896,9 +1937,10 @@ def train_long_windows(torch, weights):
     print(f"train (c): batch 32 x 512 frames, 'auto', dropout 0, no remat, "
           f"{TRAIN_WARMUP} warm-up + {TRAIN_TIMED} timed steps", flush=True)
     label = "(c) window 512, 'auto'"
-    main_path["train (c)"], *_, profiled = train_config(
+    main_path["train (c)"], _, _, med, profiled = train_config(
         torch, cfg_c, weights, src, trg, label, k3(24),
         warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
+    medians["c"] = med * 1e3
     # K3's share, all of it the tensor-core kernels'
     kernel_shares(f"step at {label}", profiled, {
         f"K3 {part}": (rf"flash_{part}_mma_kernel", rf"flash_{part}_kernel")
@@ -3469,6 +3511,210 @@ def compat_surface(torch, np, step_a=None) -> dict:
     return {"compat": main_path}
 
 
+def run_tool(module: str, *args: str) -> tuple[str, str]:
+    """python3 -m <module> <args> from the repo root in a process of its
+    own, stopped after TOOL_TIMEOUT s; it must exit 0. Returns (stdout,
+    stderr)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True,
+                          timeout=TOOL_TIMEOUT)
+    tail = "\n".join(proc.stdout.strip().splitlines()[-3:])
+    check(proc.returncode == 0,
+          f"(15) python3 -m {module} {' '.join(args)}: exit "
+          f"{proc.returncode} in {time.perf_counter() - t0:.3f} s\n{tail}"
+          + ("" if proc.returncode == 0 else "\n" + proc.stderr[-3000:]))
+    return proc.stdout, proc.stderr
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def tools(torch, np, step_a=None, request_fps=None) -> dict:
+    """Phase 15: the port's runnable scripts on the card
+    (neurosync_trainer_lite_tpu_torch/bench.py and tools/), at full width.
+    (b1) The four bench modes in this process, each run counted from zero
+    (the main path runs): train, 2 configurations x (3 + 20) steps, K1 100
+    a step; infer, a warm and a timed 30 s request, K1 50 each; stream, K1
+    50 a decode forward; frontend, no kernel. The headline within
+    TOOLS_AGREEMENT of phase 8's step (a) median when phase 8 ran. (b2)
+    python3 -m neurosync_trainer_lite_tpu_torch.bench, default and --mode
+    infer, their last stdout line and the dropout-0 line on stderr. (b3)
+    serving_soak, 4 sessions, max 8, 120 ticks, churn 30: no SLOW tick, no
+    watchdog flip, frames from every closed session. (b4) serving_knee at K
+    = 8, 5 reps, --fused 0 and 1. (b5) warmup_probe, 8 sessions, 40 soak
+    ticks. (b6) local_dispatch_probe, 8 sessions, 60 ticks, --device cpu.
+    (b7) step_probe at (a), (b) (K4), (e) (K2) and (c) (K3), each in its
+    own process: its launches a step (its stderr line) equal
+    STEP_PROBE_LAUNCHES, and its step within TOOLS_AGREEMENT of phase 8's
+    median of the same configuration when phase 8 ran. (b8) data_scale_probe --generate at 2
+    voices x 2 min (under out/, removed after), --measure, then
+    train_scale_run --steps 20 --epochs 1 over it. Returns the launch
+    counts of (b1)'s runs."""
+    import ast
+    import os
+    import shutil
+    import tempfile
+
+    from neurosync_trainer_lite_tpu_torch import bench
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    medians = (step_a or {}).get("medians_ms", {})
+    request_fps = request_fps or {}
+
+    def counted(mode):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        records = bench.MODES[mode](None, "cuda")
+        torch.cuda.synchronize()
+        return records, dict(kernels.LAUNCHES)
+
+    paths = {}
+    steps = 2 * (bench.TRAIN_WARMUP + bench.TRAIN_TIMED)
+    (d0, head), paths["bench train"] = counted("train")
+    check(paths["bench train"] == {"rope_rotate": 100 * steps},
+          f"(b1) bench train: {steps} steps of (a)'s geometry at dropout 0 "
+          f"and 0.3 launched {paths['bench train']} == K1 100 a step")
+    check(d0["metric"] == "228M_train_samples_per_sec_per_chip_dropout0"
+          and head["metric"]
+          == "228M_train_samples_per_sec_per_chip_dropout0.3"
+          and d0["value"] > 0 and head["value"] > 0,
+          f"(b1) bench train: dropout 0 {d0['value']} samples/s, headline "
+          f"(dropout 0.3) {head['value']} samples/s, vs_baseline "
+          f"{head['vs_baseline']}")
+    if "a" in medians:
+        ref = 128 / medians["a"] * 1e3
+        gap = head["value"] / ref - 1
+        check(abs(gap) <= TOOLS_AGREEMENT,
+              f"(b1) the bench headline {head['value']} samples/s within "
+              f"{TOOLS_AGREEMENT:.0%} of phase 8's step (a) median "
+              f"{medians['a']:.3f} ms ({ref:.1f} samples/s): {gap:+.2%}")
+    infer, paths["bench infer"] = counted("infer")
+    check(paths["bench infer"] == {"rope_rotate": 100},
+          f"(b1) bench infer: {infer['value']} frames/s; a warm and a timed "
+          f"30 s request launched {paths['bench infer']} == K1 50 each")
+    print(f"(b1) bench infer: one timed request {infer['value']} frames/s "
+          f"beside phase 7's 30 s request median at 'auto' "
+          + (f"{request_fps['auto']:.1f} frames/s" if "auto" in request_fps
+             else "(phase 7 did not run)"), flush=True)
+    stream, paths["bench stream"] = counted("stream")
+    k1 = paths["bench stream"].get("rope_rotate", 0)
+    check(set(paths["bench stream"]) == {"rope_rotate"} and k1 > 0
+          and k1 % 50 == 0 and 0 < stream["value"] < 500,
+          f"(b1) bench stream: tick p95 {stream['value']} ms at K = 4 under "
+          f"the 500 ms push budget; K1 {k1} launches, 50 a decode forward "
+          f"(warmup's included)")
+    front, paths["bench frontend"] = counted("frontend")
+    check(paths["bench frontend"] == {} and front["value"] > 0,
+          f"(b1) bench frontend: {front['value']} audio s/s, no kernel "
+          f"launched")
+
+    out, err = run_tool("neurosync_trainer_lite_tpu_torch.bench")
+    sub_head = last_json(out)
+    sub_d0 = [json.loads(line) for line in err.splitlines()
+              if line.startswith('{"metric"')]
+    check(sub_head["metric"] == head["metric"] and len(sub_d0) == 1
+          and sub_d0[0]["metric"] == d0["metric"],
+          f"(b2) python3 -m neurosync_trainer_lite_tpu_torch.bench: last "
+          f"stdout line {sub_head}; stderr {sub_d0}")
+    out, _ = run_tool("neurosync_trainer_lite_tpu_torch.bench", "--mode",
+                      "infer")
+    check(last_json(out)["metric"] == infer["metric"],
+          f"(b2) --mode infer: last stdout line {last_json(out)}")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tools_") as tmp:
+        out, _ = run_tool(TOOLS + "serving_soak", "soak", "--sessions", "4",
+                          "--max-sessions", "8", "--ticks", "120",
+                          "--churn", "30", "--out", f"{tmp}/soak.jsonl")
+        soak = last_json(out)
+        closed = [int(n) for n in re.findall(r"closed after (\d+) frames",
+                                             out)]
+        check(soak["slow_over_5s"] == 0 and soak["watchdog_flip_tick"] is None
+              and "SLOW" not in out and len(closed) == 7 and min(closed) > 0,
+              f"(b3) serving_soak: p50 / p95 / max {soak['p50_ms']} / "
+              f"{soak['p95_ms']} / {soak['max_ms']} ms, no SLOW tick, no "
+              f"watchdog flip, the 7 closed sessions' frames {closed}")
+        for fused in ("0", "1"):
+            out, _ = run_tool(TOOLS + "serving_knee", f"knee{fused}", "--k",
+                              "8", "--reps", "5", "--fused", fused, "--out",
+                              f"{tmp}/knee.jsonl")
+            knee = last_json(out)
+            check(knee["frames_per_decode_tick"] > 0,
+                  f"(b4) serving_knee K = 8, --fused {fused}: intake p50 / "
+                  f"p95 {knee['intake_p50_ms']} / {knee['intake_p95_ms']} "
+                  f"ms, decode p50 / p95 {knee['decode_p50_ms']} / "
+                  f"{knee['decode_p95_ms']} ms, "
+                  f"{knee['frames_per_decode_tick']} frames a decode tick")
+        out, _ = run_tool(TOOLS + "warmup_probe", "--sessions", "8",
+                          "--soak-ticks", "40", "--out",
+                          f"{tmp}/warmup.jsonl")
+        warm = last_json(out)
+        check(warm["bg_completed"] and warm["time_to_serve_s"] > 0,
+              f"(b5) warmup_probe, 8 sessions: time to serve "
+              f"{warm['time_to_serve_s']} s ({warm['n_fused_programs']} "
+              f"runs), soak tick ms {warm['soak_tick_ms']}")
+        out, _ = run_tool(TOOLS + "local_dispatch_probe", "--sessions", "8",
+                          "--ticks", "60", "--device", "cpu")
+        local = ast.literal_eval(out.strip().splitlines()[-1])
+        check(local["decode_ticks"] > 0 and local["intake_ticks"] > 0,
+              f"(b6) local_dispatch_probe on the CPU, 8 sessions: "
+              f"{out.strip().splitlines()[1]}; host ms a tick, intake p50 "
+              f"{local['intake_host_ms_p50']}, decode p50 "
+              f"{local['decode_host_ms_p50']}")
+        for letter, flags in STEP_PROBES.items():
+            out, err = run_tool(TOOLS + "step_probe", letter, *flags,
+                                "--out", f"{tmp}/step.jsonl")
+            rec = last_json(out)
+            line = next(x for x in err.splitlines()
+                        if x.startswith("launches "))
+            ran = json.loads(line[len("launches "):])
+            want = {k: n * ran["steps"]
+                    for k, n in STEP_PROBE_LAUNCHES[letter].items()}
+            check(ran["launches"] == want,
+                  f"(b7) step_probe ({letter}): {ran['steps']} steps launched "
+                  f"{ran['launches']} == {STEP_PROBE_LAUNCHES[letter]} a "
+                  f"step")
+            what = (f"(b7) step_probe ({letter}) {' '.join(flags)}: "
+                    f"{rec['ms_per_step']} ms a step, "
+                    f"{rec['samples_per_sec']} samples/s")
+            if letter in medians:
+                gap = rec["ms_per_step"] / medians[letter] - 1
+                check(abs(gap) <= TOOLS_AGREEMENT,
+                      f"{what}, within {TOOLS_AGREEMENT:.0%} of phase 8's "
+                      f"median {medians[letter]:.3f} ms: {gap:+.2%}")
+            else:
+                check(rec["ms_per_step"] > 0, what)
+
+        data = REPO / "out" / "chip_smoke_data_scale"
+        shutil.rmtree(data, ignore_errors=True)
+        try:
+            out, _ = run_tool(TOOLS + "data_scale_probe", "--generate",
+                              str(data), "--voices", "2", "--minutes", "2")
+            print(f"(b8) {out.strip().splitlines()[-1]}", flush=True)
+            out, _ = run_tool(TOOLS + "data_scale_probe", "--measure",
+                              str(data))
+            check("peak RSS" in out and "epoch 2:" in out,
+                  "(b8) data_scale_probe --measure:\n"
+                  + "\n".join(out.strip().splitlines()[1:]))
+            out, _ = run_tool(TOOLS + "train_scale_run", "--root", str(data),
+                              "--steps", "20", "--epochs", "1", "--out",
+                              os.path.join(tmp, "scale"), "--summary-out",
+                              os.path.join(tmp, "summary.json"))
+        finally:
+            shutil.rmtree(data, ignore_errors=True)
+        last = out.strip().splitlines()[-1]
+        summary = json.loads(last[len("SUMMARY "):])
+        check(last.startswith("SUMMARY ") and summary["optimizer_steps"] == 20
+              and summary["nan_steps"] == 0 and summary["model_pth_mb"] > 0,
+              f"(b8) train_scale_run --steps 20 --epochs 1: {last}")
+    print(f"phase 15 (tools): {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    return paths
+
+
 def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
     """The card's busy share and top kernels of one call (profiler on).
     Returns the call's device ms by kernel name."""
@@ -3502,11 +3748,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("serve-s2", "live", "parallel", "tensor",
-                           "compat"),
+                           "compat", "tools"),
         help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
-             "(parallel), 13 (tensor) or 14 (compat) alone, printing no "
-             "result line: to time the (s2) request or the live run of two "
-             "trees side by side")
+             "(parallel), 13 (tensor), 14 (compat) or 15 (tools) alone, "
+             "printing no result line: to time the (s2) request or the live "
+             "run of two trees side by side")
     parser.add_argument("--parallel-worker", nargs=4,
                         metavar=("PART", "RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
@@ -3539,7 +3785,8 @@ def main() -> int:
     sass_counts(kernels)
     if args.only:
         {"serve-s2": serve_long, "live": live, "parallel": parallel,
-         "tensor": tensor, "compat": compat_surface}[args.only](torch, np)
+         "tensor": tensor, "compat": compat_surface,
+         "tools": tools}[args.only](torch, np)
         print(card, flush=True)
         return 0
 
@@ -3582,8 +3829,10 @@ def main() -> int:
     k3_checks(torch, records)
     k2_checks(torch, records)
     reference_goldens(torch, np)
-    paths = {"serve": serve(torch, np), "serve (s2)": serve_long(torch, np),
-             "live": live(torch, np)}
+    paths, request_fps = {}, {}
+    paths["serve"], request_fps = serve(torch, np)
+    paths.update({"serve (s2)": serve_long(torch, np),
+                  "live": live(torch, np)})
     train_paths, step_a = train(torch)
     paths.update(train_paths)
     train_entry_point(torch, np, step_a)
@@ -3591,6 +3840,7 @@ def main() -> int:
     tp_paths, tp_timed, tp_err = tensor(torch, np)
     paths.update(tp_paths)
     paths.update(compat_surface(torch, np, step_a))
+    paths.update(tools(torch, np, step_a, request_fps))
     for name, by in tp_timed.items():
         records[name].setdefault("by_shape", {}).update(by)
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"],

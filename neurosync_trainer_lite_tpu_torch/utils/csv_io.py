@@ -2,9 +2,9 @@
 copy of neurosync_trainer_lite_tpu/utils/csv_io.py, with the csv module and
 numpy, so no pandas is needed).
 
-save_generated_data_as_csv writes the JAX package's file: Timecode
-(HH:mm:ss:ff.mmm at 60 fps), BlendshapeCount and the 61 named ARKit
-blendshape columns, plus 7 optional emotion columns.
+save_generated_data_as_csv writes the JAX package's file byte for byte
+(pandas' to_csv): Timecode (HH:mm:ss:ff.mmm at 60 fps), BlendshapeCount and
+the 61 named ARKit blendshape columns, plus 7 optional emotion columns.
 """
 
 from __future__ import annotations
@@ -63,11 +63,13 @@ def save_generated_data_as_csv(generated, output_path: str,
     else:
         columns, data = BASE_COLUMNS, generated[:, :61]
     with open(output_path, "w", newline="") as f:
-        writer = csv.writer(f)
+        writer = csv.writer(f, lineterminator="\n")
         writer.writerow(columns)
         for i, row in enumerate(data):
+            # numpy's shortest repr of each value in its own dtype, as
+            # pandas writes it (a float32 value is not widened first)
             writer.writerow([make_timecode(i), data.shape[1],
-                             *(repr(float(v)) for v in row)])
+                             *map(str, row)])
     print(f"Generated data saved to {output_path}")
 
 
@@ -167,7 +169,7 @@ def split_csv_by_frames(input_csv_path: str, output_dir: str,
             output_dir,
             f"{os.path.basename(input_csv_path)[:-4]}_part{i + 1}.csv")
         with open(path, "w", newline="") as f:
-            writer = csv.writer(f)
+            writer = csv.writer(f, lineterminator="\n")
             writer.writerow(header)
             writer.writerows(rows[start:end])
         paths.append(path)

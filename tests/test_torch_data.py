@@ -221,3 +221,15 @@ def test_split_csv_by_frames_matches_jax(tmp_path):
 def test_pad_data_zero_pads_the_shorter():
     a, b = tcsv.pad_data(np.ones((3, 2)), np.ones((5, 2)))
     assert a.shape == b.shape == (5, 2) and a[3:].sum() == 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_livelink_csv_bytes_equal_jax(tmp_path, dtype):
+    """save_generated_data_as_csv writes the JAX writer's bytes (pandas'
+    to_csv): each value in its dtype's shortest repr, '\\n' line ends."""
+    data = (np.random.default_rng(4).uniform(0, 1, (40, 61))
+            * np.logspace(-9, 6, 61)).astype(dtype)
+    jcsv.save_generated_data_as_csv(data, str(tmp_path / "jax.csv"))
+    tcsv.save_generated_data_as_csv(data, str(tmp_path / "torch.csv"))
+    assert (tmp_path / "torch.csv").read_bytes() == \
+        (tmp_path / "jax.csv").read_bytes()

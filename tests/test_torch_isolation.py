@@ -15,7 +15,16 @@ import numpy as np
 import pytest
 import torch
 
-from neurosync_trainer_lite_tpu_torch import compat
+from neurosync_trainer_lite_tpu_torch import bench, compat
+from neurosync_trainer_lite_tpu_torch.tools import (
+    data_scale_probe,
+    local_dispatch_probe,
+    serving_knee,
+    serving_soak,
+    step_probe,
+    train_scale_run,
+    warmup_probe,
+)
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.data.processing import extract_audio_features
 from neurosync_trainer_lite_tpu_torch.inference.api import (
@@ -83,7 +92,15 @@ need = [pkg.__name__ + m for m in (".compat", ".utils.profiling",
                                    ".training.loop", ".train",
                                    ".inference.streaming",
                                    ".inference.multi_stream",
-                                   ".inference.server")]
+                                   ".inference.server", ".bench",
+                                   ".tools._serving_harness",
+                                   ".tools.serving_soak",
+                                   ".tools.serving_knee",
+                                   ".tools.warmup_probe",
+                                   ".tools.local_dispatch_probe",
+                                   ".tools.step_probe",
+                                   ".tools.data_scale_probe",
+                                   ".tools.train_scale_run")]
 print(len(names), bad, [m for m in need if m not in names])
 sys.exit(1 if bad or len(names) < 15 or any(m not in names for m in need)
          else 0)
@@ -124,6 +141,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                                   ["chip_smoke.py", "--only", "live"],
                                   ["chip_smoke.py", "--only", "tensor"],
                                   ["chip_smoke.py", "--only", "compat"],
+                                  ["chip_smoke.py", "--only", "tools"],
                                   ["k3_variants.py"], ["k2_variants.py"]])
 def test_card_scripts_refuse_to_run_without_a_card(argv):
     """The other ways to run the card scripts exit non-zero too, without a
@@ -182,6 +200,19 @@ ENTRY_POINTS = {
     "train.main --coordinator": lambda: train_main(
         ["--tiny", "--coordinator", "127.0.0.1:1", "--num_processes", "1",
          "--process_id", "0"]),
+    # the runnable scripts, as `python -m ...` runs them without --device
+    **{f"bench --mode {mode}": (lambda mode=mode: bench.cli(
+        ["--mode", mode, "--tiny"])) for mode in bench.MODES},
+    "tools.serving_soak": lambda: serving_soak.main(["x", "--tiny"]),
+    "tools.serving_knee": lambda: serving_knee.main(["x", "--tiny"]),
+    "tools.warmup_probe": lambda: warmup_probe.main(["--tiny"]),
+    "tools.local_dispatch_probe": lambda: local_dispatch_probe.main(
+        ["--sessions", "2", "--ticks", "1"]),
+    "tools.step_probe": lambda: step_probe.main(["x", "--tiny"]),
+    "tools.data_scale_probe --measure": lambda: data_scale_probe.main(
+        ["--measure", "/nonexistent"]),
+    "tools.train_scale_run": lambda: train_scale_run.main(
+        ["--root", "/nonexistent", "--tiny"]),
 }
 
 
