@@ -27,6 +27,7 @@ that read it are done.
 
 from __future__ import annotations
 
+import time
 from typing import Iterator
 
 import numpy as np
@@ -186,7 +187,7 @@ def _iterate(base: WindowedDataset, idxs: np.ndarray, batch_size: int, *,
 
 
 def host_batches(view, batch_size: int, *, pin_memory: bool, mesh=None,
-                 accum: int = 1, **order
+                 accum: int = 1, busy: list[float] | None = None, **order
                  ) -> Iterator[tuple[torch.Tensor, torch.Tensor]]:
     """view.batches(batch_size, **order) as fp32 torch tensors, each batch
     gathered straight into newly allocated (pinned, if asked) host memory.
@@ -194,10 +195,13 @@ def host_batches(view, batch_size: int, *, pin_memory: bool, mesh=None,
     Under a mesh each batch is this rank's rows of the global one
     (parallel/distributed.py:rank_rows, laid out for `accum` micro-batches),
     and only those windows are gathered. The batch order stays a function
-    of the seed, the same on every rank."""
+    of the seed, the same on every rank. busy: a one-item list of seconds
+    that each batch's allocation and gather adds to (the training loop's
+    gather_seconds)."""
     base = getattr(view, "base", view)
     audio_dim, facial_dim = base.dims
     for chunk in view.index_batches(batch_size, **order):
+        start = time.perf_counter()
         if mesh is not None:
             chunk = rank_rows(chunk, mesh, accum)
         src = torch.empty((len(chunk), base.window, audio_dim),
@@ -205,6 +209,8 @@ def host_batches(view, batch_size: int, *, pin_memory: bool, mesh=None,
         trg = torch.empty((len(chunk), base.window, facial_dim),
                           pin_memory=pin_memory)
         base.gather(chunk, (src.numpy(), trg.numpy()))
+        if busy is not None:
+            busy[0] += time.perf_counter() - start
         yield src, trg
 
 

@@ -39,6 +39,7 @@ package's arithmetic, which counts the 'data' shards and ignores tp.
 
 from __future__ import annotations
 
+import itertools
 import os
 import time
 
@@ -80,6 +81,7 @@ from neurosync_trainer_lite_tpu_torch.utils.plots import (
     save_gradient_norm_plot,
     save_loss_plot,
 )
+from neurosync_trainer_lite_tpu_torch.utils.profiling import span
 
 
 def step_generator(seed: int, batch_step: int) -> torch.Generator:
@@ -105,13 +107,33 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
                     history_out=None):
     """Returns (state, batch_step, mean_epoch_loss). history_out: optional
     dict extended with 'train_losses', 'val_losses' and 'grad_norms' lists
-    and this epoch's 'epoch_seconds' and 'epoch_samples' (global rows)."""
+    and this epoch's 'epoch_seconds', 'epoch_samples' (global rows),
+    'batch_wait_seconds' (the loop's waits on the prefetch queue) and
+    'gather_seconds' (the prefetch thread's gathers, batches gathered ahead
+    of a bounded epoch's end included).
+
+    Under a profiler the epoch records spans (utils/profiling.py:span):
+    nsync.loop.epoch around it all; nsync.loop.batch_wait around each
+    next() on the prefetch queue (one a step, and one more that finds the
+    queue's end unless max_steps_per_epoch ends the epoch);
+    nsync.loop.upload, nsync.loop.validation and nsync.loop.epoch_sync (the
+    one device → host fetch)."""
+    with span("nsync.loop.epoch"):
+        return _train_one_epoch(
+            epoch, state, train_view, val_view, cfg, train_step, eval_step,
+            batch_step=batch_step, device=device, mesh=mesh,
+            plots_dir=plots_dir, verbose=verbose, history_out=history_out)
+
+
+def _train_one_epoch(epoch, state, train_view, val_view, cfg, train_step,
+                     eval_step, *, batch_step, device, mesh, plots_dir,
+                     verbose, history_out):
     device = resolve_device(device)
     pin = device.type == "cuda"
     train_losses, train_steps = [], []
     val_losses, val_steps = [], []
     gradient_norms = []
-    start_time = time.time()
+    start_time = time.perf_counter()
 
     def val_stream():
         return host_batches(val_view, cfg.batch_size, pin_memory=pin,
@@ -129,12 +151,20 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
 
     anneal = cfg.loss_variant == "smoothness" and cfg.smoothness_annealing
     n_batches = 0
+    batch_wait, gather = 0.0, [0.0]
     batch_iter = prefetch(host_batches(
         train_view, cfg.batch_size, pin_memory=pin, mesh=mesh,
-        accum=cfg.grad_accum_steps, shuffle=True, seed=cfg.seed + epoch,
-        drop_last=True))
-    for batch_idx, host in enumerate(batch_iter):
-        src, trg = to_device(host, device)
+        accum=cfg.grad_accum_steps, busy=gather, shuffle=True,
+        seed=cfg.seed + epoch, drop_last=True))
+    for batch_idx in itertools.count():
+        with span("nsync.loop.batch_wait"):
+            wait_start = time.perf_counter()
+            host = next(batch_iter, None)
+            batch_wait += time.perf_counter() - wait_start
+        if host is None:
+            break
+        with span("nsync.loop.upload"):
+            src, trg = to_device(host, device)
         state, loss, grad_norm = train_step(
             state, src, trg, step_generator(cfg.seed + 1, batch_step))
         train_steps.append(batch_step)
@@ -151,11 +181,12 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
             break
 
         if val_iter is not None and batch_idx % cfg.validation_interval == 0:
-            vsrc, vtrg = to_device(next_val_batch(), device)
-            # the annealed loss keeps validation on the training loss's
-            # alpha/beta scale through the optimizer's count
-            vloss = eval_step(state.model, vsrc, vtrg,
-                              opt_step_count(state) if anneal else None)
+            with span("nsync.loop.validation"):
+                vsrc, vtrg = to_device(next_val_batch(), device)
+                # the annealed loss keeps validation on the training loss's
+                # alpha/beta scale through the optimizer's count
+                vloss = eval_step(state.model, vsrc, vtrg,
+                                  opt_step_count(state) if anneal else None)
             val_steps.append(batch_step)
             val_losses.append(vloss)
             if verbose:
@@ -167,17 +198,19 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
     def fetch(xs):   # one device → host copy (and sync) for the epoch
         return torch.stack(xs).float().cpu().tolist() if xs else []
 
-    train_losses = fetch(train_losses)
-    val_losses = fetch(val_losses)
-    gradient_norms = fetch(gradient_norms)
+    with span("nsync.loop.epoch_sync"):
+        train_losses = fetch(train_losses)
+        val_losses = fetch(val_losses)
+        gradient_norms = fetch(gradient_norms)
 
-    epoch_time = time.time() - start_time
+    epoch_time = time.perf_counter() - start_time
     mean_loss = float(np.mean(train_losses)) if train_losses else float("nan")
     if verbose:
         print(f"Epoch [{epoch + 1}/{cfg.n_epochs}], Loss: {mean_loss:.4f}, "
               f"Time: {epoch_time:.2f} seconds "
               f"({n_batches * cfg.batch_size / max(epoch_time, 1e-9):.1f} "
-              f"samples/s)")
+              f"samples/s; batch wait {batch_wait:.2f} s, "
+              f"gather {gather[0]:.2f} s)")
 
     with distributed.fenced("epoch-plots"):   # rank 0 alone plots
         if plots_dir is not None:
@@ -191,6 +224,8 @@ def train_one_epoch(epoch, state: TrainState, train_view, val_view,
         history_out.setdefault("epoch_seconds", []).append(epoch_time)
         history_out.setdefault("epoch_samples", []).append(
             n_batches * cfg.batch_size)
+        history_out.setdefault("batch_wait_seconds", []).append(batch_wait)
+        history_out.setdefault("gather_seconds", []).append(gather[0])
 
     return state, batch_step, mean_loss
 

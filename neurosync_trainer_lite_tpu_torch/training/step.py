@@ -73,6 +73,7 @@ from neurosync_trainer_lite_tpu_torch.training.optim import (
     make_schedule,
 )
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
+from neurosync_trainer_lite_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -185,6 +186,10 @@ def make_train_step(cfg: Config, *, total_steps: int = 1,
                          "pass total_steps=steps_per_epoch * n_epochs")
 
     def step(state: TrainState, src, trg, generator: torch.Generator):
+        with span("nsync.step"):
+            return _step(state, src, trg, generator)
+
+    def _step(state, src, trg, generator):
         model, opt = state.model, state.optimizer
         count = opt_step_count(state)
         step_count = count if anneal else None
@@ -193,13 +198,16 @@ def make_train_step(cfg: Config, *, total_steps: int = 1,
             raise ValueError(f"batch {src.shape[0]} is not a multiple of "
                              f"grad_accum_steps {accum}")
         model.train()
-        opt.zero_grad(set_to_none=True)
+        with span("nsync.optim.zero_grad"):
+            opt.zero_grad(set_to_none=True)
         loss = None
         with dropout_rows(*blocks):
             for s, t in zip(src.chunk(accum), trg.chunk(accum)):
-                micro = _compute_loss(model, s, t, cfg, generator,
-                                      step_count, total_steps)
-                micro.backward()
+                with span("nsync.step.forward"):
+                    micro = _compute_loss(model, s, t, cfg, generator,
+                                          step_count, total_steps)
+                with span("nsync.step.backward"):
+                    micro.backward()
                 loss = (micro.detach() if loss is None
                         else loss + micro.detach())
         named = [(k, p.grad) for k, p in model.named_parameters()
@@ -210,14 +218,18 @@ def make_train_step(cfg: Config, *, total_steps: int = 1,
                 g.div_(accum)
             loss = loss / accum
         if mesh is not None:
-            loss = _reduce_gradients(grads, loss, mesh)
-        grad_norm = global_norm(
-            grads, [param_spec(k) is not None for k, _ in named], tp_mesh)
-        clip_by_global_norm_(grads, grad_norm, cfg.grad_clip)
-        lr = state.schedule(count)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+            with span("nsync.step.all_reduce"):
+                loss = _reduce_gradients(grads, loss, mesh)
+        with span("nsync.optim.clip"):
+            grad_norm = global_norm(
+                grads, [param_spec(k) is not None for k, _ in named],
+                tp_mesh)
+            clip_by_global_norm_(grads, grad_norm, cfg.grad_clip)
+        with span("nsync.optim.adam"):
+            lr = state.schedule(count)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
         return state, loss, grad_norm
 
     return step

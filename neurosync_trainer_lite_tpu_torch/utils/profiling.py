@@ -11,6 +11,12 @@ neurosync_trainer_lite_tpu/utils/profiling.py).
   only the launch time; the timer waits for the card every ``sync_every``
   steps, by reading the device scalar it is given (``.item()``), and
   spreads the window's elapsed time evenly over its steps.
+- ``span(name)``: a labelled range of the program, recorded only while a
+  profiler runs. It lands in the profiler's trace beside the card's
+  kernels, on the same clock, so an idle stretch of the card falls inside
+  a known span (the benchmark's common/spans.py assigns it to the
+  innermost one). The training loop, step and optimizer open them (names
+  ``nsync.<group>.<what>``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,18 @@ import numpy as np
 import torch
 
 TRACE_FILE = "trace.json"
+
+
+#: what span() returns while no profiler records: one shared context
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """torch.profiler.record_function(name) while a profiler records on
+    this thread; otherwise NO_SPAN, at the cost of one flag check."""
+    if not torch._C._autograd._profiler_enabled():
+        return NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
