@@ -286,15 +286,23 @@ TP_CONFIGS = {"'pallas', dropout 0": (dict(attention_impl="pallas",
                                            dropout=0.0), False),
               "'auto', dropout 0.3, FFN through K2": ({}, True)}
 TP_DP_CONFIG = TP_PLANTED_CONFIG = "'auto', dropout 0.3, FFN through K2"
+#: the bf16 LayerNorm kernels (csrc/layer_norm.cu) in one full-width
+#: forward (8 + 8 layers: 2 an encoder layer, 3 a decoder layer, each
+#: stack's final one), and in a training step, whose backward runs each
+#: LayerNorm's once; a rank of tensor parallelism runs them all (replicated)
+LN_FORWARD = {"layer_norm_fwd": 8 * 2 + 8 * 3 + 2}
+LN_STEP = {**LN_FORWARD, "layer_norm_bwd": LN_FORWARD["layer_norm_fwd"]}
 #: kernel launches of one step at each, and the 'model' all-reduces of one
 #: full-width step (8 + 8 layers): a row-parallel linear's forward (2 an
 #: encoder layer, 3 a decoder layer), a column-parallel linear's backward
 #: (4 and 7), the grad norm's
 TP_LAUNCHES = {"'pallas', dropout 0": {"rope_rotate": 52,
                                        "fused_rope_attention": 24,
-                                       "fused_rope_attention_bwd": 24},
+                                       "fused_rope_attention_bwd": 24,
+                                       **LN_STEP},
                "'auto', dropout 0.3, FFN through K2": {"rope_rotate": 100,
-                                                       "ffn_bwd_dh1": 16}}
+                                                       "ffn_bwd_dh1": 16,
+                                                       **LN_STEP}}
 TP_COLLECTIVES = {"forward": 8 * 2 + 8 * 3, "backward": 8 * 4 + 8 * 7,
                   "grad_norm": 1}
 #: (t2)'s fp32 MeshDecoder against one process, a share of max|out|
@@ -323,12 +331,13 @@ STEP_PROBES = {
 #: each step_probe run's kernel launches a step (phase 8's and 9's counts
 #: of the same configuration), read from the probe's stderr
 STEP_PROBE_LAUNCHES = {
-    "a": {"rope_rotate": 100},
+    "a": {"rope_rotate": 100, **LN_STEP},
     "b": {"rope_rotate": 52, "fused_rope_attention": 24,
-          "fused_rope_attention_bwd": 24},
-    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16},
+          "fused_rope_attention_bwd": 24, **LN_STEP},
+    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP},
     "c": {"rope_rotate": 100, "flash_attention": 24,
-          "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24},
+          "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24,
+          **LN_STEP},
 }
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
@@ -1141,6 +1150,138 @@ def k2_timed(torch, dy, w, am, scale: float = 256 / 179) -> dict:
     return rec
 
 
+def ln_checks(torch, records):
+    """Phases 4 and 5 for the bf16 LayerNorm kernels (csrc/layer_norm.cu):
+    both against their plain version at the model's width, at the training
+    step's rows and the 30 s request's, the backward bitwise repeatable;
+    then timed at the training step's beside the plain version, the bound
+    and PyTorch's own LayerNorm with bf16 weights (a yardstick of speed
+    only: the port never calls it)."""
+    import torch.nn.functional as F
+
+    from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.ops import layer_norm_kernel as lnk
+
+    cfg = Config()
+    B, T, H, _ = serving_shape(cfg)
+    rows = cfg.batch_size * cfg.micro_batch_size
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def inputs(n):
+        x = torch.randn(n, H, device="cuda", generator=gen) * 2 + 0.5
+        dout = torch.randn(n, H, device="cuda", generator=gen)
+        return x.bfloat16(), dout.bfloat16()
+
+    w = torch.rand(H, device="cuda", generator=gen) + 0.5
+    b = torch.randn(H, device="cuda", generator=gen)
+    worst = 0.0
+    for label, n in (("training", rows), ("serving", B * T)):
+        x, dout = inputs(n)
+        out, mean, r = lnk.layer_norm_fwd_cuda(x, w, b)
+        grads = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+        torch.cuda.synchronize()
+        ref, rmean, rr = lnk.layer_norm_plain_fwd(x, w, b)
+        want = lnk.layer_norm_plain_bwd(dout, x, mean, r, w)
+        check(bool(((mean - rmean).abs() <= 1e-6 + 1e-5 * rmean.abs()).all())
+              and bool(((r - rr).abs() <= 1e-5 * rr.abs()).all()),
+              f"LN [{n}, {H}] mean and r within 1e-5 of the plain version's")
+        # the fp32 size of the terms each output sums: a last-bit change of
+        # mean or r (the row sums run in another order than PyTorch's)
+        # moves an output by about that size's ulp, more than its own
+        # where the terms cancel
+        y = (x.float() - rmean) * rr
+        dy = dout.float() * w
+        m1, m2 = dy.mean(-1, keepdim=True), (dy * y).mean(-1, keepdim=True)
+        sizes = ((y * w).abs() + b.abs(),
+                 rr * (dy.abs() + m1.abs() + (y * m2).abs()))
+        for name, got, exp, size in (("out", out, ref, sizes[0]),
+                                     ("dx", grads[0], want[0], sizes[1])):
+            ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+                size, exp.float().abs()).clamp_min(2.0 ** -100))) - 7)
+            diff = (got.float() - exp.float()).abs()
+            worst = max(worst, diff.max().item())
+            same = (got == exp).float().mean().item()
+            check(got.dtype == exp.dtype == torch.bfloat16
+                  and got.shape == exp.shape and bool((diff <= ulp).all())
+                  and same >= 0.99,
+                  f"LN {name} [{n}, {H}] within one bf16 ulp of its terms' "
+                  f"size of the plain version, {same:.6f} of it bitwise "
+                  f"(max abs err {diff.max().item():.3e})")
+        for name, got, exp in zip(("dweight", "dbias"), grads[1:], want[1:]):
+            e = (got - exp).abs().max().item()
+            worst = max(worst, e)
+            check(got.dtype == torch.float32 and got.shape == exp.shape
+                  and e <= 1e-5 * exp.norm().item(),
+                  f"LN {name} [{n}, {H}] within 1e-5 of the plain version's "
+                  f"norm (max abs err {e:.3e})")
+        again = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+        check(all(torch.equal(a, e) for a, e in zip(grads, again)),
+              f"LN backward [{n}, {H}] bitwise repeatable")
+        del x, dout, out, mean, r, grads, ref, want, again, y, dy, sizes
+
+    # four input sets taken in turn (2 x 33.5 MB each, past the 50 MB L2),
+    # so that every replayed call reads its inputs from HBM
+    sets = [inputs(rows) for _ in range(4)]
+    stats = [lnk.layer_norm_fwd_cuda(x, w, b)[1:] for x, _ in sets]
+    wb, bb = (t.bfloat16().requires_grad_(True) for t in (w, b))
+
+    def rotating(fn):
+        turn = itertools.count()
+        return lambda: fn(next(turn) % len(sets))
+
+    with torch.no_grad():
+        fwd = dict(
+            ms=device_ms(rotating(lambda i: lnk.layer_norm_fwd_cuda(
+                sets[i][0], w, b))),
+            plain_ms=device_ms(rotating(lambda i: lnk.layer_norm_plain_fwd(
+                sets[i][0], w, b))),
+            library_ms=device_ms(rotating(lambda i: F.layer_norm(
+                sets[i][0], (H,), wb, bb, lnk.EPS))))
+        bwd = dict(
+            ms=device_ms(rotating(lambda i: lnk.layer_norm_bwd_cuda(
+                sets[i][1], sets[i][0], *stats[i], w))),
+            plain_ms=device_ms(rotating(lambda i: lnk.layer_norm_plain_bwd(
+                sets[i][1], sets[i][0], *stats[i], w))))
+    # the library's backward alone runs on the stream of its forward, so
+    # the forwards run on the stream the graph captures; then its forward
+    # and backward together
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        leaves = [x.detach().requires_grad_(True) for x, _ in sets]
+        outs = [F.layer_norm(x, (H,), wb, bb, lnk.EPS) for x in leaves]
+    bwd["library_ms"] = device_ms(rotating(lambda i: torch.autograd.grad(
+        outs[i], (leaves[i], wb, bb), sets[i][1], retain_graph=True)),
+        stream=stream)
+
+    def library_fwd_bwd(i):
+        out = F.layer_norm(leaves[i], (H,), wb, bb, lnk.EPS)
+        torch.autograd.grad(out, (leaves[i], wb, bb), sets[i][1])
+
+    library_pair = device_ms(rotating(library_fwd_bwd))
+    # the least bytes: x read and out written in bf16 forward, x and dout
+    # read and dx written backward (the per-row statistics, the weights
+    # and the backward's scratch move under 1% of that); fp32 operations
+    # an element: 7 forward, 12 backward
+    n = rows * H
+    fwd["bound_ms"], fwd["bound_by"] = bound(4 * n, 7 * n)
+    bwd["bound_ms"], bwd["bound_by"] = bound(6 * n, 12 * n)
+    for rec in (fwd, bwd):
+        rec["shape"] = [rows, H]
+    print_timed("layer_norm_fwd", "training", fwd)
+    print_timed("layer_norm_bwd", "training", bwd)
+    print(f"time layer_norm (training) forward + backward, library "
+          f"{library_pair:.6f} ms (one CUDA graph)", flush=True)
+    records["layer_norm"].update(
+        {key: fwd[key] + bwd[key] for key in ("ms", "plain_ms", "bound_ms")},
+        library_ms=library_pair, bound_by="bytes", shape=[rows, H],
+        max_abs_err=worst, by_shape={"forward": fwd, "backward": bwd})
+    check(fwd["bound_by"] == bwd["bound_by"] == "bytes",
+          "LN bound by its bytes")
+    del sets, stats, leaves, outs
+    torch.cuda.empty_cache()
+
+
 def serve_long(torch, np):
     """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
     at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
@@ -1165,9 +1306,11 @@ def serve_long(torch, np):
     print(f"serve (s2): frame_size {cfg.frame_size}, overlap {cfg.overlap}: "
           f"the 30 s request decodes as [{batch}, {cfg.frame_size}]",
           flush=True)
-    expected = {"auto": {"rope_rotate": 50, "flash_attention": 24},
-                "pallas": {"rope_rotate": 50, "flash_attention": 24},
-                "xla": {"rope_rotate": 50}}
+    expected = {"auto": {"rope_rotate": 50, "flash_attention": 24,
+                         **LN_FORWARD},
+                "pallas": {"rope_rotate": 50, "flash_attention": 24,
+                           **LN_FORWARD},
+                "xla": {"rope_rotate": 50, **LN_FORWARD}}
     for model in models.values():
         generate_facial_data_from_bytes(wav, model, cfg)
     torch.cuda.synchronize()
@@ -1516,8 +1659,9 @@ def live(torch, np):
     main_path = dict(kernels.LAUNCHES)
     for hook in hooks:
         hook.remove()
-    expected = {"auto": {"rope_rotate": 50},
-                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
+    expected = {"auto": {"rope_rotate": 50, **LN_FORWARD},
+                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24,
+                           **LN_FORWARD}}
     for impl in models:
         want = {name: count * forwards[impl]
                 for name, count in expected[impl].items()}
@@ -1640,8 +1784,9 @@ def serve(torch, np):
                                / "audio.wav").read_bytes(),
         "30 s seeded": seeded_wav(np, cfg.sr),
     }
-    expected = {"auto": {"rope_rotate": 50},
-                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
+    expected = {"auto": {"rope_rotate": 50, **LN_FORWARD},
+                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24,
+                           **LN_FORWARD}}
     for impl, model in models.items():     # warm-up: cuBLAS, constants
         generate_facial_data_from_bytes(clips["30 s seeded"], model, cfg)
     torch.cuda.synchronize()
@@ -1820,9 +1965,9 @@ def train(torch):
 
     configs = {"a": Config(), "b": Config(attention_impl="pallas",
                                           dropout=0.0)}
-    expected = {"a": {"rope_rotate": 100},
+    expected = {"a": {"rope_rotate": 100, **LN_STEP},
                 "b": {"rope_rotate": 52, "fused_rope_attention": 24,
-                      "fused_rope_attention_bwd": 24}}
+                      "fused_rope_attention_bwd": 24, **LN_STEP}}
     base = configs["a"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     weights = init_seq2seq(base, gen, device="cuda").state_dict()
@@ -1885,7 +2030,7 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
     try:
         launches, _, _, med, profiled = train_config(
             torch, cfg, weights, src, trg, label,
-            {"rope_rotate": 100, "ffn_bwd_dh1": 16},
+            {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP},
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     finally:
         seq2seq._ffn = default
@@ -1894,7 +2039,7 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
         "K2": (r"ffn_bwd_wgmma_kernel", r"ffn_bwd_wmma_kernel"),
         "K1": (r"rope_rows", None)})
     train_config(torch, cfg, weights, src, trg, "(e) with the default _ffn "
-                 "again", {"rope_rotate": 100}, warmup=0, timed=0,
+                 "again", {"rope_rotate": 100, **LN_STEP}, warmup=0, timed=0,
                  profile=False, falls=False)
 
     sound = ffn_bwd.ffn_bwd_dh1_cuda
@@ -1928,9 +2073,11 @@ def train_long_windows(torch, weights, medians: dict):
     gen = torch.Generator(device="cuda").manual_seed(5)
     main_path = {}
 
-    def k3(fwd, bwd=24, rope=100):
+    def k3(fwd, bwd=24, rope=100, norms=0):
         return {"rope_rotate": rope, "flash_attention": fwd,
-                "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkdv": bwd}
+                "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkdv": bwd,
+                **LN_STEP,
+                "layer_norm_fwd": LN_STEP["layer_norm_fwd"] + norms}
 
     cfg_c = Config(dropout=0.0, batch_size=32, micro_batch_size=512)
     src, trg = train_batch(torch, cfg_c, gen)
@@ -1963,15 +2110,18 @@ def train_long_windows(torch, weights, medians: dict):
     cfg_d = Config(dropout=0.0, batch_size=8, micro_batch_size=2048)
     src, trg = train_batch(torch, cfg_d, gen)
     # the rematted layers launch their forward kernels again in the
-    # backward: K3 forward once per attention, K1 twice (q and k)
+    # backward: K3 forward once per attention, K1 twice (q and k), the
+    # LayerNorm forward once per LayerNorm of a layer (2 an encoder layer,
+    # 3 a decoder layer; the stacks' final ones are outside the layers)
     runs = {
         "no remat": (cfg_d, k3(24), 1, 3),
-        "remat 'all'": (cfg_d.replace(remat=True), k3(48, rope=148), 1, 3),
+        "remat 'all'": (cfg_d.replace(remat=True),
+                        k3(48, rope=148, norms=40), 1, 3),
         "remat 'dots'": (cfg_d.replace(remat=True, remat_policy="dots"),
-                         k3(48, rope=148), 0, 0),
+                         k3(48, rope=148, norms=40), 0, 0),
         "remat 'decoder', 2 layers": (
             cfg_d.replace(remat=True, remat_scope="decoder", remat_layers=2),
-            k3(28, rope=108), 0, 0),
+            k3(28, rope=108, norms=6), 0, 0),
     }
     print("train (d): batch 8 x 2048 frames, 'auto', dropout 0", flush=True)
     results = {}
@@ -2686,9 +2836,10 @@ def parallel(torch, np) -> dict:
              "parallel (p2)": summed(r["launches"] for r in p2),
              "parallel (p3)": summed(r["decode"]["launches"] for r in p2),
              "parallel (p4)": summed(r["train_model"]["launches"] for r in p2)}
-    check(p1["launches"] == {"rope_rotate": 100 * DP_STEPS},
-          f"(p1) kernel launches of {DP_STEPS} steps of (a): "
-          f"{p1['launches']} == {{'rope_rotate': {100 * DP_STEPS}}}")
+    want = {"rope_rotate": 100 * DP_STEPS,
+            **{k: n * DP_STEPS for k, n in LN_STEP.items()}}
+    check(p1["launches"] == want, f"(p1) kernel launches of {DP_STEPS} "
+          f"steps of (a): {p1['launches']} == {want}")
     for path in ("parallel (p2)", "parallel (p3)"):   # 'pallas' runs K4
         check(paths[path].get("fused_rope_attention", 0) > 0,
               f"{path} launched the K4 forward")
@@ -3455,8 +3606,9 @@ def compat_surface(torch, np, step_a=None) -> dict:
 
     cfg = Config.from_dict(cfg_dict)
     wav = seeded_wav(np, cfg.sr)
-    expected = {"auto": {"rope_rotate": 50},
-                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24}}
+    expected = {"auto": {"rope_rotate": 50, **LN_FORWARD},
+                "pallas": {"rope_rotate": 2, "fused_rope_attention": 24,
+                           **LN_FORWARD}}
     for model in models.values():      # warm-up
         compat.generate_facial_data_from_bytes(wav, model, device=None)
     torch.cuda.synchronize()
@@ -3575,9 +3727,12 @@ def tools(torch, np, step_a=None, request_fps=None) -> dict:
     paths = {}
     steps = 2 * (bench.TRAIN_WARMUP + bench.TRAIN_TIMED)
     (d0, head), paths["bench train"] = counted("train")
-    check(paths["bench train"] == {"rope_rotate": 100 * steps},
+    check(paths["bench train"] == {"rope_rotate": 100 * steps,
+                                   **{k: n * steps
+                                      for k, n in LN_STEP.items()}},
           f"(b1) bench train: {steps} steps of (a)'s geometry at dropout 0 "
-          f"and 0.3 launched {paths['bench train']} == K1 100 a step")
+          f"and 0.3 launched {paths['bench train']} == K1 100 and the "
+          f"LayerNorm 42 + 42 a step")
     check(d0["metric"] == "228M_train_samples_per_sec_per_chip_dropout0"
           and head["metric"]
           == "228M_train_samples_per_sec_per_chip_dropout0.3"
@@ -3593,20 +3748,27 @@ def tools(torch, np, step_a=None, request_fps=None) -> dict:
               f"{TOOLS_AGREEMENT:.0%} of phase 8's step (a) median "
               f"{medians['a']:.3f} ms ({ref:.1f} samples/s): {gap:+.2%}")
     infer, paths["bench infer"] = counted("infer")
-    check(paths["bench infer"] == {"rope_rotate": 100},
+    two = {"rope_rotate": 100,
+           **{k: 2 * n for k, n in LN_FORWARD.items()}}
+    check(paths["bench infer"] == two,
           f"(b1) bench infer: {infer['value']} frames/s; a warm and a timed "
-          f"30 s request launched {paths['bench infer']} == K1 50 each")
+          f"30 s request launched {paths['bench infer']} == K1 50 and the "
+          f"LayerNorm 42 each")
     print(f"(b1) bench infer: one timed request {infer['value']} frames/s "
           f"beside phase 7's 30 s request median at 'auto' "
           + (f"{request_fps['auto']:.1f} frames/s" if "auto" in request_fps
              else "(phase 7 did not run)"), flush=True)
     stream, paths["bench stream"] = counted("stream")
     k1 = paths["bench stream"].get("rope_rotate", 0)
-    check(set(paths["bench stream"]) == {"rope_rotate"} and k1 > 0
-          and k1 % 50 == 0 and 0 < stream["value"] < 500,
+    norms = paths["bench stream"].get("layer_norm_fwd", 0)
+    check(set(paths["bench stream"]) == {"rope_rotate", "layer_norm_fwd"}
+          and k1 > 0 and k1 % 50 == 0
+          and norms == k1 // 50 * LN_FORWARD["layer_norm_fwd"]
+          and 0 < stream["value"] < 500,
           f"(b1) bench stream: tick p95 {stream['value']} ms at K = 4 under "
-          f"the 500 ms push budget; K1 {k1} launches, 50 a decode forward "
-          f"(warmup's included)")
+          f"the 500 ms push budget; K1 {k1} launches, 50 a decode forward, "
+          f"and the LayerNorm {norms}, 42 a decode forward (warmup's "
+          f"included)")
     front, paths["bench frontend"] = counted("frontend")
     check(paths["bench frontend"] == {} and front["value"] > 0,
           f"(b1) bench frontend: {front['value']} audio s/s, no kernel "
@@ -3818,6 +3980,12 @@ def main() -> int:
                       "1e-5*max|plain| (fp32)",
             launch_names=["flash_attention_bwd_dq",
                           "flash_attention_bwd_dkdv"]),
+        "layer_norm": dict(
+            route="cuda", source=source + "layer_norm.cu",
+            replaces="neurosync_trainer_lite_tpu/models/seq2seq.py:119",
+            tolerance="out, dx one bf16 ulp of their terms' size and 99% "
+                      "bitwise; dweight, dbias 1e-5*norm(plain)",
+            launch_names=["layer_norm_fwd", "layer_norm_bwd"]),
         "ffn_bwd_dh1": dict(
             route="cuda", source=source + "ffn_bwd.cu",
             replaces="neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py:115",
@@ -3828,6 +3996,7 @@ def main() -> int:
     kernel_checks(torch, records)
     k3_checks(torch, records)
     k2_checks(torch, records)
+    ln_checks(torch, records)
     reference_goldens(torch, np)
     paths, request_fps = {}, {}
     paths["serve"], request_fps = serve(torch, np)
@@ -3851,6 +4020,13 @@ def main() -> int:
               "the K3 backward launched its two kernels alike")
         if "flash_attention_bwd_dq" in counts:
             counts["flash_attention_bwd"] = counts["flash_attention_bwd_dq"]
+    for name in records["layer_norm"]["launch_names"]:
+        check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
+              f"{name} ran in the main path runs")
+    for counts in paths.values():   # the LayerNorm's two kernels
+        if "layer_norm_fwd" in counts:
+            counts["layer_norm"] = (counts["layer_norm_fwd"]
+                                    + counts.get("layer_norm_bwd", 0))
     for name in records:
         check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
               f"{name} ran in the main path runs")

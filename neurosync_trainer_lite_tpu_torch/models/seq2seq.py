@@ -16,7 +16,8 @@ Parameters are fp32; with cfg.use_amp the compute runs in bf16 with fp32
 accumulation, LayerNorm in fp32. A Python loop over the layers takes the
 place of lax.scan. In bf16, LayerNorm and the training FFN are autograd
 Functions with JAX's lean residuals and rounding points (_layer_norm_bf16,
-_ffn_lean_core); fp32 keeps plain autograd, as in JAX.
+_ffn_lean_core), the LayerNorm a pair of CUDA kernels on the card
+(csrc/layer_norm.cu); fp32 keeps plain autograd, as in JAX.
 
 Remat (cfg.remat, remat_scope, remat_layers, remat_policy): the first
 remat_layers layers of each stack in scope run under
@@ -64,6 +65,11 @@ from neurosync_trainer_lite_tpu_torch.ops.attention import (
     multi_head_attention,
     split_or_none,
 )
+from neurosync_trainer_lite_tpu_torch.ops.layer_norm_kernel import (
+    EPS as _LN_EPS,
+    layer_norm_bwd,
+    layer_norm_fwd,
+)
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_embed
 from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
     model_sharded,
@@ -72,8 +78,6 @@ from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
 )
 from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
-
-_LN_EPS = 1e-5
 
 
 class Linear(nn.Module):
@@ -111,29 +115,20 @@ class LayerNorm(nn.Module):
 class _LayerNormBf16(torch.autograd.Function):
     """LayerNorm of bf16 x with fp32 math that keeps only x and the [..., 1]
     fp32 mean and rsqrt for the backward, which is the complete analytic
-    derivative (through mean and variance) in fp32."""
+    derivative (through mean and variance) in fp32: csrc/layer_norm.cu's
+    kernels on the card, their plain version on the CPU
+    (ops/layer_norm_kernel.py)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
-        xf = x.float()
-        mean = xf.mean(dim=-1, keepdim=True)
-        var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-        r = torch.rsqrt(var + _LN_EPS)
+        out, mean, r = layer_norm_fwd(x, weight, bias)
         ctx.save_for_backward(x, mean, r, weight)
-        return ((xf - mean) * r * weight + bias).to(x.dtype)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
         x, mean, r, weight = ctx.saved_tensors
-        y = (x.float() - mean) * r
-        df = dout.float()
-        width = df.shape[-1]
-        dweight = (df * y).reshape(-1, width).sum(0)
-        dbias = df.reshape(-1, width).sum(0)
-        dy = df * weight
-        m1 = dy.mean(dim=-1, keepdim=True)
-        m2 = (dy * y).mean(dim=-1, keepdim=True)
-        return (r * (dy - m1 - y * m2)).to(x.dtype), dweight, dbias
+        return layer_norm_bwd(dout, x, mean, r, weight)
 
 
 def layer_norm(x, weight, bias):

@@ -27,7 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("rope", "fused_attention", "flash_attention", "ffn_bwd")
+SOURCES = ("rope", "fused_attention", "flash_attention", "ffn_bwd",
+           "layer_norm")
 # -Xptxas -v: the build log lists each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,6 +60,11 @@ _ARGTYPES = {
     "ffn_bwd": {
         "ffn_bwd_dh1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         ctypes.c_float, _P]},
+    "layer_norm": {
+        "layer_norm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+        "layer_norm_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                           _P],
+        "layer_norm_bwd_blocks": [_I, _I]},
 }
 
 

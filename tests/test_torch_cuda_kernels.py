@@ -1,5 +1,5 @@
-"""Kernels K1, K4, K3 (forward and backward) and K2 on the card, against
-their plain versions.
+"""Kernels K1, K4, K3 (forward and backward), K2 and the bf16 LayerNorm on
+the card, against their plain versions.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
 nothing of JAX, so they run on a machine with the card alone:
@@ -30,6 +30,7 @@ from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
 from neurosync_trainer_lite_tpu_torch.ops import kernels
+from neurosync_trainer_lite_tpu_torch.ops import layer_norm_kernel as lnk
 from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
 from neurosync_trainer_lite_tpu_torch.ops.attention import _linear
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
@@ -294,14 +295,19 @@ def test_model_forward_counts_and_impls_agree(gen, use_amp):
                           device="cuda").eval()
     pallas.load_state_dict(auto.state_dict())
     src = _randn(gen, 3, 40, 32)
+    # bf16: the LayerNorm kernel, 2 an encoder layer, 3 a decoder layer and
+    # each stack's final one
+    norms = {"layer_norm_fwd": 2 * 2 + 2 * 3 + 2} if use_amp else {}
     with torch.no_grad():
         kernels.reset_launches()
         a = auto(src)
-        assert dict(kernels.LAUNCHES) == {"rope_rotate": 2 + 2 * 3 * 2}
+        assert dict(kernels.LAUNCHES) == {"rope_rotate": 2 + 2 * 3 * 2,
+                                          **norms}
         kernels.reset_launches()
         p = pallas(src)
         assert dict(kernels.LAUNCHES) == {"rope_rotate": 2,
-                                          "fused_rope_attention": 3 * 2}
+                                          "fused_rope_attention": 3 * 2,
+                                          **norms}
     tol = 3e-2 if use_amp else 2e-5
     torch.testing.assert_close(a, p, atol=tol, rtol=tol)
 
@@ -671,3 +677,160 @@ def test_nccl_one_rank_step_equals_no_group_bitwise(gen, tmp_path):
         distributed.destroy()
     assert grouped == plain
     assert all(torch.equal(a, b) for a, b in zip(params, plain_params))
+
+
+def _ln_inputs(gen, rows, width):
+    bf16 = torch.bfloat16
+    x = (_randn(gen, rows, width) * 2.0 + 0.5).to(bf16)
+    w = torch.rand(width, device="cuda", generator=gen) + 0.5
+    b = _randn(gen, width)
+    dout = _randn(gen, rows, width, dtype=bf16)
+    return x, w, b, dout
+
+
+def _ln_scales(x, w, b, dout, mean, r):
+    """The fp32 size of the terms each output sums: |(x - mean) r w| + |b|
+    for out, r (|dy| + |m1| + |y m2|) for dx. A last-bit change of mean or
+    r (the row sums run in another order than PyTorch's) moves an output
+    by about that size's fp32 ulp, which is more than the result's own
+    bf16 ulp where the terms cancel."""
+    y = (x.float() - mean) * r
+    dy = dout.float() * w
+    m1 = dy.mean(dim=-1, keepdim=True)
+    m2 = (dy * y).mean(dim=-1, keepdim=True)
+    return (y * w).abs() + b.abs(), r * (dy.abs() + m1.abs() + (y * m2).abs())
+
+
+def _assert_bf16_close(got, want, scale, what):
+    """got within one bf16 ulp of `scale` (never below want's own ulp)
+    from want everywhere, and bitwise equal to it at 99% of elements."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.maximum(scale, want.float().abs()).clamp_min(2.0 ** -100))) - 7)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= ulp).all()), (what, (diff / ulp).max().item())
+    same = (got == want).float().mean().item()
+    assert same >= 0.99, (what, same)
+
+
+def _check_ln(x, w, b, dout):
+    """Both kernels against the plain version on the same tensors; the
+    backward run twice, bitwise equal (no atomics)."""
+    out, mean, r = lnk.layer_norm_fwd_cuda(x, w, b)
+    ref, rmean, rr = lnk.layer_norm_plain_fwd(x, w, b)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(r, rr, rtol=1e-5, atol=0)
+    fscale, bscale = _ln_scales(x, w, b, dout, rmean, rr)
+    _assert_bf16_close(out, ref, fscale, "out")
+    grads = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+    want = lnk.layer_norm_plain_bwd(dout, x, mean, r, w)
+    _assert_bf16_close(grads[0], want[0], bscale, "dx")
+    for name, a, e in zip(("dweight", "dbias"), grads[1:], want[1:]):
+        assert a.dtype == torch.float32 and a.shape == e.shape
+        assert (a - e).abs().max().item() <= 1e-5 * e.norm().item(), name
+    again = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+    assert all(torch.equal(a, e) for a, e in zip(grads, again))
+
+
+@pytest.mark.parametrize("width", sorted({16, 20, 48, 1000, 1024,
+                                          lnk.MAX_WIDTH}))
+@pytest.mark.parametrize("rows", [1, 7, 16384])
+def test_layer_norm_kernels_match_plain(gen, rows, width):
+    """Widths under a warp's 32 lanes, not a multiple of 8 (20: the scalar
+    variant), 1000 (125 vectors: lanes past the row's end), the model's
+    1,024 and the widest taken; one row, a grid of one block, and the
+    training step's 128 x 128 rows."""
+    _check_ln(*_ln_inputs(gen, rows, width))
+
+
+@pytest.mark.parametrize("width", [1024, 20])
+def test_layer_norm_kernels_on_strided_and_misaligned_inputs(gen, width):
+    """A strided view (the wrapper's contiguous copy) and views 2 bytes
+    past a 16-byte boundary (the scalar variant), x and dout alike."""
+    x, w, b, dout = _ln_inputs(gen, 33, width)
+    wide = torch.zeros(33, 2 * width, device="cuda", dtype=torch.bfloat16)
+    wide[:, ::2] = x
+    strided = wide[:, ::2]
+    assert not strided.is_contiguous()
+    _check_ln(strided, w, b, dout)
+    flat = torch.zeros(2, 33 * width + 1, device="cuda", dtype=torch.bfloat16)
+    xm, dm = flat[0, 1:].view(33, width), flat[1, 1:].view(33, width)
+    xm.copy_(x)
+    dm.copy_(dout)
+    assert xm.data_ptr() % 16 and dm.data_ptr() % 16
+    _check_ln(xm, w, b, dm)
+
+
+def test_layer_norm_runs_the_nsync_ln_symbols(gen):
+    """By the profiler's kernel names, which the benchmark's
+    ln_roofline_pct.train reads: the forward, the backward and its
+    finishing pass."""
+    x, w, b, dout = _ln_inputs(gen, 256, 1024)
+
+    def run():
+        out, mean, r = lnk.layer_norm_fwd_cuda(x, w, b)
+        lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "nsync_ln_")
+    found = {k for k in ("nsync_ln_fwd<", "nsync_ln_bwd<",
+                         "nsync_ln_bwd_params") if any(k in n for n in names)}
+    assert found == {"nsync_ln_fwd<", "nsync_ln_bwd<",
+                     "nsync_ln_bwd_params"}, names
+
+
+def test_layer_norm_refusals(gen):
+    x, w, b, dout = _ln_inputs(gen, 8, 64)
+    mean, r = torch.zeros(8, 1, device="cuda"), torch.ones(8, 1, device="cuda")
+    with pytest.raises(TypeError, match="bf16"):
+        lnk.layer_norm_fwd_cuda(x.float(), w, b)
+    with pytest.raises(ValueError, match="width"):
+        wide = torch.zeros(2, lnk.MAX_WIDTH + 8, device="cuda",
+                           dtype=torch.bfloat16)
+        lnk.layer_norm_fwd_cuda(wide, w, b)
+    with pytest.raises(ValueError, match="weight"):
+        lnk.layer_norm_fwd_cuda(x, w[:32], b)
+    with pytest.raises(ValueError, match="bias"):
+        lnk.layer_norm_fwd_cuda(x, w, b.bfloat16())
+    with pytest.raises(ValueError, match="differ"):
+        lnk.layer_norm_bwd_cuda(dout[:4], x, mean, r, w)
+    with pytest.raises(ValueError, match="mean"):
+        lnk.layer_norm_bwd_cuda(dout, x, mean[:4], r, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        lnk.layer_norm_fwd_cuda(x.cpu(), w, b)
+
+
+def test_layer_norm_wider_than_max_width_is_refused_on_the_card(gen):
+    """The model's bf16 LayerNorm on a row wider than the kernels take:
+    refused on the card, with no kernel launched and no plain fallback."""
+    x, w, b, _ = _ln_inputs(gen, 16, lnk.MAX_WIDTH + 8)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="width"):
+        seq2seq.layer_norm(x.clone().requires_grad_(True), w, b)
+    assert not kernels.LAUNCHES
+
+
+def test_bf16_train_step_runs_the_layer_norm_kernels(gen, monkeypatch):
+    """A tiny bf16 step at dropout 0 on the card: each LayerNorm launches
+    the forward and the backward kernel once (2 an encoder layer, 3 a
+    decoder layer, and each stack's final one); its loss and grad norm
+    near the same step with the plain LayerNorm on the card."""
+    cfg = Config(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
+                 output_dim=7, dropout=0.0, use_amp=True)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    src, trg = _randn(gen, 4, 24, 32), _randn(gen, 4, 24, 7)
+    runs = {}
+    for kernel in (True, False):
+        monkeypatch.setattr(lnk, "takes_kernel", lambda x, k=kernel: k)
+        state = init_train_state(cfg, 5, device="cuda", state_dict=weights)
+        kernels.reset_launches()
+        _, loss, norm = make_train_step(cfg)(state, src, trg,
+                                             torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        runs[kernel] = (float(loss), float(norm), dict(kernels.LAUNCHES))
+    norms = 2 * 2 + 2 * 3 + 2
+    assert runs[True][2]["layer_norm_fwd"] == norms
+    assert runs[True][2]["layer_norm_bwd"] == norms
+    assert not {"layer_norm_fwd", "layer_norm_bwd"} & set(runs[False][2])
+    assert runs[True][0] == pytest.approx(runs[False][0], rel=1e-2)
+    assert runs[True][1] == pytest.approx(runs[False][1], rel=2e-2)
