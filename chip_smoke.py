@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only tensor     # phases 1, 2 and 13 alone
     python3 chip_smoke.py --only compat     # phases 1, 2 and 14 alone
     python3 chip_smoke.py --only tools      # phases 1, 2 and 15 alone
+    python3 chip_smoke.py --only ln         # phases 1, 2, 4 and 5 alone
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -1153,49 +1154,73 @@ def k2_timed(torch, dy, w, am, scale: float = 256 / 179) -> dict:
 def ln_checks(torch, records):
     """Phases 4 and 5 for the bf16 LayerNorm kernels (csrc/layer_norm.cu):
     both against their plain version at the model's width, at the training
-    step's rows and the 30 s request's, the backward bitwise repeatable;
-    then timed at the training step's beside the plain version, the bound
-    and PyTorch's own LayerNorm with bf16 weights (a yardstick of speed
-    only: the port never calls it)."""
+    step's rows and the 30 s request's, and at the wav2vec2 path's width
+    512 (models/wav2vec2.py): the forward at the frozen frontend's largest
+    channel LayerNorm (the first conv's frames of a batch) and both at the
+    feature projection's rows; the backward bitwise repeatable; then timed
+    at the training step's beside the plain version, the bound and
+    PyTorch's own LayerNorm with bf16 weights (a yardstick of speed only:
+    the port never calls it)."""
     import torch.nn.functional as F
 
     from neurosync_trainer_lite_tpu_torch.config import Config
+    from neurosync_trainer_lite_tpu_torch.models import wav2vec2 as w2v
     from neurosync_trainer_lite_tpu_torch.ops import layer_norm_kernel as lnk
 
     cfg = Config()
     B, T, H, _ = serving_shape(cfg)
     rows = cfg.batch_size * cfg.micro_batch_size
+    wcfg = Config(architecture="wav2vec2", sr=16000)
+    w2v_width = wcfg.conv_dim[-1]
+    frontend_rows = wcfg.batch_size * (
+        (wcfg.window_samples - w2v.CONV_KERNEL[0]) // w2v.CONV_STRIDE[0] + 1)
     gen = torch.Generator(device="cuda").manual_seed(8)
 
-    def inputs(n):
-        x = torch.randn(n, H, device="cuda", generator=gen) * 2 + 0.5
-        dout = torch.randn(n, H, device="cuda", generator=gen)
+    def inputs(n, h=H):
+        x = torch.randn(n, h, device="cuda", generator=gen) * 2 + 0.5
+        dout = torch.randn(n, h, device="cuda", generator=gen)
         return x.bfloat16(), dout.bfloat16()
 
-    w = torch.rand(H, device="cuda", generator=gen) + 0.5
-    b = torch.randn(H, device="cuda", generator=gen)
+    def params(h):
+        return (torch.rand(h, device="cuda", generator=gen) + 0.5,
+                torch.randn(h, device="cuda", generator=gen))
+
+    weights = {H: params(H)}
     worst = 0.0
-    for label, n in (("training", rows), ("serving", B * T)):
-        x, dout = inputs(n)
+    for label, n, h, backward in (
+            ("training", rows, H, True), ("serving", B * T, H, True),
+            ("wav2vec2 frontend", frontend_rows, w2v_width, False),
+            ("wav2vec2 projection", wcfg.batch_size * wcfg.micro_batch_size,
+             w2v_width, True)):
+        if h not in weights:
+            weights[h] = params(h)
+        w, b = weights[h]
+        x, dout = inputs(n, h)
         out, mean, r = lnk.layer_norm_fwd_cuda(x, w, b)
-        grads = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+        grads = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w) if backward \
+            else None
         torch.cuda.synchronize()
         ref, rmean, rr = lnk.layer_norm_plain_fwd(x, w, b)
-        want = lnk.layer_norm_plain_bwd(dout, x, mean, r, w)
         check(bool(((mean - rmean).abs() <= 1e-6 + 1e-5 * rmean.abs()).all())
               and bool(((r - rr).abs() <= 1e-5 * rr.abs()).all()),
-              f"LN [{n}, {H}] mean and r within 1e-5 of the plain version's")
+              f"LN {label} [{n}, {h}] mean and r within 1e-5 of the plain "
+              f"version's")
         # the fp32 size of the terms each output sums: a last-bit change of
         # mean or r (the row sums run in another order than PyTorch's)
         # moves an output by about that size's ulp, more than its own
         # where the terms cancel
         y = (x.float() - rmean) * rr
-        dy = dout.float() * w
-        m1, m2 = dy.mean(-1, keepdim=True), (dy * y).mean(-1, keepdim=True)
-        sizes = ((y * w).abs() + b.abs(),
-                 rr * (dy.abs() + m1.abs() + (y * m2).abs()))
-        for name, got, exp, size in (("out", out, ref, sizes[0]),
-                                     ("dx", grads[0], want[0], sizes[1])):
+        outputs = [("out", out, ref, (y * w).abs() + b.abs())]
+        if backward:
+            want = lnk.layer_norm_plain_bwd(dout, x, mean, r, w)
+            dy = dout.float() * w
+            m1 = dy.mean(-1, keepdim=True)
+            m2 = (dy * y).mean(-1, keepdim=True)
+            outputs.append(("dx", grads[0], want[0],
+                            rr * (dy.abs() + m1.abs() + (y * m2).abs())))
+            del dy, m1, m2
+        del y
+        for name, got, exp, size in outputs:
             ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
                 size, exp.float().abs()).clamp_min(2.0 ** -100))) - 7)
             diff = (got.float() - exp.float()).abs()
@@ -1204,21 +1229,28 @@ def ln_checks(torch, records):
             check(got.dtype == exp.dtype == torch.bfloat16
                   and got.shape == exp.shape and bool((diff <= ulp).all())
                   and same >= 0.99,
-                  f"LN {name} [{n}, {H}] within one bf16 ulp of its terms' "
-                  f"size of the plain version, {same:.6f} of it bitwise "
-                  f"(max abs err {diff.max().item():.3e})")
-        for name, got, exp in zip(("dweight", "dbias"), grads[1:], want[1:]):
-            e = (got - exp).abs().max().item()
-            worst = max(worst, e)
-            check(got.dtype == torch.float32 and got.shape == exp.shape
-                  and e <= 1e-5 * exp.norm().item(),
-                  f"LN {name} [{n}, {H}] within 1e-5 of the plain version's "
-                  f"norm (max abs err {e:.3e})")
-        again = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
-        check(all(torch.equal(a, e) for a, e in zip(grads, again)),
-              f"LN backward [{n}, {H}] bitwise repeatable")
-        del x, dout, out, mean, r, grads, ref, want, again, y, dy, sizes
+                  f"LN {label} {name} [{n}, {h}] within one bf16 ulp of its "
+                  f"terms' size of the plain version, {same:.6f} of it "
+                  f"bitwise (max abs err {diff.max().item():.3e})")
+            del ulp, diff
+        del outputs, size
+        if backward:
+            for name, got, exp in zip(("dweight", "dbias"), grads[1:],
+                                      want[1:]):
+                e = (got - exp).abs().max().item()
+                worst = max(worst, e)
+                check(got.dtype == torch.float32 and got.shape == exp.shape
+                      and e <= 1e-5 * exp.norm().item(),
+                      f"LN {label} {name} [{n}, {h}] within 1e-5 of the "
+                      f"plain version's norm (max abs err {e:.3e})")
+            again = lnk.layer_norm_bwd_cuda(dout, x, mean, r, w)
+            check(all(torch.equal(a, e) for a, e in zip(grads, again)),
+                  f"LN {label} backward [{n}, {h}] bitwise repeatable")
+            del want, again
+        del x, dout, out, mean, r, grads, ref, rmean, rr
+        torch.cuda.empty_cache()
 
+    w, b = weights[H]
     # four input sets taken in turn (2 x 33.5 MB each, past the 50 MB L2),
     # so that every replayed call reads its inputs from HBM
     sets = [inputs(rows) for _ in range(4)]
@@ -3910,11 +3942,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("serve-s2", "live", "parallel", "tensor",
-                           "compat", "tools"),
+                           "compat", "tools", "ln"),
         help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
-             "(parallel), 13 (tensor), 14 (compat) or 15 (tools) alone, "
-             "printing no result line: to time the (s2) request or the live "
-             "run of two trees side by side")
+             "(parallel), 13 (tensor), 14 (compat), 15 (tools) or 4 and 5 "
+             "(ln, the LayerNorm kernels) alone, printing no result line: "
+             "to time the (s2) request or the live run of two trees side by "
+             "side")
     parser.add_argument("--parallel-worker", nargs=4,
                         metavar=("PART", "RANK", "PORT", "DIR"),
                         help=argparse.SUPPRESS)
@@ -3948,7 +3981,9 @@ def main() -> int:
     if args.only:
         {"serve-s2": serve_long, "live": live, "parallel": parallel,
          "tensor": tensor, "compat": compat_surface,
-         "tools": tools}[args.only](torch, np)
+         "tools": tools,
+         "ln": lambda torch, _: ln_checks(torch, {"layer_norm": {}}),
+         }[args.only](torch, np)
         print(card, flush=True)
         return 0
 

@@ -25,7 +25,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import WAV2VEC2_FIELDS, Config
 from neurosync_trainer_lite_tpu_torch.data import processing
 from neurosync_trainer_lite_tpu_torch.inference import api, chunked
 from neurosync_trainer_lite_tpu_torch.models.loss import loss_fn
@@ -47,8 +47,10 @@ def _cfg(config) -> Config:
     return Config.from_dict(dict(config))
 
 
-#: reference: config.py:26-55 (same keys, same defaults)
-training_config: dict[str, Any] = Config().to_dict()
+#: reference: config.py:26-55 (same keys, same defaults; the port's own
+#: wav2vec2 fields are not the reference's)
+training_config: dict[str, Any] = {
+    k: v for k, v in Config().to_dict().items() if k not in WAV2VEC2_FIELDS}
 
 
 def build_model(config, device=None):

@@ -17,6 +17,10 @@ unroll_residents is semantics only there. The training loop and its data
 (training/loop.py, data/windowing.py) read mode, auto_remat (the remat
 planner), async_checkpoint (checkpoint and model.pth writes in a thread),
 validation_interval, val_split, max_steps_per_epoch and the paths.
+architecture names the model (models/architectures.py); the wav2vec2
+fields (WAV2VEC2_FIELDS, the port's own: the JAX package has no such
+model) are read only by models/wav2vec2.py, which takes its dropout rate
+from dropout as the Seq2Seq does.
 prng_impl is read by no module: it
 picks JAX's PRNG implementation, which has no torch counterpart (dropout
 seeds come from a torch.Generator, ops/attention.py). use_multi_gpu and
@@ -113,6 +117,17 @@ class Config:
     attention_impl: str = "auto"     # 'auto' | 'xla' | 'pallas'
     async_checkpoint: bool = True
 
+    # --- the port's second architecture (models/wav2vec2.py) --------------------
+    architecture: str = "seq2seq"    # 'seq2seq' | 'wav2vec2'
+    conv_dim: tuple = (512,) * 7     # the feature encoder's conv widths
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    freeze_feature_encoder: bool = True
+
+    def __post_init__(self):
+        # a config read from JSON holds lists where the fields hold tuples
+        object.__setattr__(self, "conv_dim", tuple(self.conv_dim))
+
     # ---------------------------------------------------------------------------
     @property
     def head_dim(self) -> int:
@@ -124,6 +139,12 @@ class Config:
     @property
     def ffn_dim(self) -> int:
         return 4 * self.hidden_dim
+
+    @property
+    def window_samples(self) -> int:
+        """Audio samples of a training window of micro_batch_size frames
+        (the waveform models' input): floor(frames · sr / frame_rate)."""
+        return self.micro_batch_size * self.sr // self.frame_rate
 
     def to_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -138,6 +159,30 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
+#: the fields the JAX package's Config does not have
+WAV2VEC2_FIELDS = ("architecture", "conv_dim", "num_conv_pos_embeddings",
+                   "num_conv_pos_embedding_groups", "freeze_feature_encoder")
+
+
+def _architecture(name: str):
+    # imported here: the table imports the models, which import this module
+    from neurosync_trainer_lite_tpu_torch.models.architectures import (
+        architecture,
+    )
+
+    return architecture(name)
+
+
+def check_servable(cfg: Config) -> None:
+    """The serving paths (offline, live, the HTTP server) run only the
+    architectures with a served form: they featurise audio into MFCC
+    windows, which a waveform model does not take."""
+    if not _architecture(cfg.architecture).served:
+        raise ValueError(f"serving runs the 'seq2seq' architecture only, not "
+                         f"{cfg.architecture!r}: it trains through "
+                         f"training/loop.py and is not served")
+
+
 def check_batch_split(batch_size: int, accum: int, dp: int) -> None:
     """The JAX config's constraint: a batch splits into `accum` micro-batches
     of `dp` equal rank shares each."""
@@ -149,7 +194,12 @@ def check_batch_split(batch_size: int, accum: int, dp: int) -> None:
 def check_tp_split(cfg: Config, tp: int) -> None:
     """A rank of the 'model' axis holds num_heads / tp whole heads and
     ffn_dim / tp columns of the FFN. One stated difference from JAX, whose
-    GSPMD would split a head across devices: any other layout raises."""
+    GSPMD would split a head across devices: any other layout raises, as
+    does tp > 1 for an architecture with no sharded form."""
+    name = getattr(cfg, "architecture", "seq2seq")
+    if tp > 1 and not _architecture(name).sharded:
+        raise ValueError(f"tensor parallelism (tp {tp}) shards the 'seq2seq' "
+                         f"architecture only, not {name!r}")
     for what, n in (("num_heads", cfg.num_heads), ("ffn_dim", cfg.ffn_dim)):
         if n % tp:
             raise ValueError(f"{what} {n} is not a multiple of tp {tp}: a "

@@ -77,6 +77,11 @@ class WindowedDataset:
             return 0, 0
         return self.audio[0].shape[1], self.facial[0].shape[1]
 
+    def batch_shapes(self, n: int) -> tuple[tuple, tuple]:
+        """The shapes of a batch of n windows: (src, trg)."""
+        audio_dim, facial_dim = self.dims
+        return (n, self.window, audio_dim), (n, self.window, facial_dim)
+
     def _native_gather(self):
         """The native gather over this dataset (built once), or None."""
         if not hasattr(self, "_native"):
@@ -199,15 +204,13 @@ def host_batches(view, batch_size: int, *, pin_memory: bool, mesh=None,
     that each batch's allocation and gather adds to (the training loop's
     gather_seconds)."""
     base = getattr(view, "base", view)
-    audio_dim, facial_dim = base.dims
     for chunk in view.index_batches(batch_size, **order):
         start = time.perf_counter()
         if mesh is not None:
             chunk = rank_rows(chunk, mesh, accum)
-        src = torch.empty((len(chunk), base.window, audio_dim),
-                          pin_memory=pin_memory)
-        trg = torch.empty((len(chunk), base.window, facial_dim),
-                          pin_memory=pin_memory)
+        src_shape, trg_shape = base.batch_shapes(len(chunk))
+        src = torch.empty(src_shape, pin_memory=pin_memory)
+        trg = torch.empty(trg_shape, pin_memory=pin_memory)
         base.gather(chunk, (src.numpy(), trg.numpy()))
         if busy is not None:
             busy[0] += time.perf_counter() - start
@@ -263,15 +266,26 @@ def prefetch(iterator, depth: int = 2):
         stop.set()
 
 
-def prepare_datasets(cfg: Config, clips=None, device=None):
-    """Load clips from cfg.root_dir (features from the device frontend on
-    `device`) or use the given list, and return (dataset, train_view,
-    val_view) with the seeded split (reference: dataset.py:12-21)."""
+def feature_windows(cfg: Config, clips=None, device=None) -> WindowedDataset:
+    """The Seq2Seq's dataset (models/architectures.py): the given clips, or
+    cfg.root_dir's with features from the device frontend on `device`."""
     if clips is None:
         from neurosync_trainer_lite_tpu_torch.data.processing import load_data
 
         clips = load_data(cfg.root_dir, cfg.sr, ffmpeg_path=cfg.ffmpeg_path,
                           device=device)
-    ds = WindowedDataset(clips, window=cfg.micro_batch_size)
+    return WindowedDataset(clips, window=cfg.micro_batch_size)
+
+
+def prepare_datasets(cfg: Config, clips=None, device=None):
+    """The dataset cfg.architecture takes (models/architectures.py), over
+    the given clips or those loaded from cfg.root_dir, and return (dataset,
+    train_view, val_view) with the seeded split (reference:
+    dataset.py:12-21)."""
+    from neurosync_trainer_lite_tpu_torch.models.architectures import (
+        architecture,
+    )
+
+    ds = architecture(cfg.architecture).dataset(cfg, clips, device)
     train, val = ds.split(cfg.val_split, cfg.seed)
     return ds, train, val

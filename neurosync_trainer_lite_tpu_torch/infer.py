@@ -23,7 +23,8 @@ import numpy as np
 from neurosync_trainer_lite_tpu_torch.config import Config, tiny_config
 
 _FLAG_TYPES = {"bool": lambda s: s.lower() in ("1", "true", "yes"),
-               "int": int, "float": float}
+               "int": int, "float": float,
+               "tuple": lambda s: tuple(int(v) for v in s.split(","))}
 
 
 def _add_config_flags(parser: argparse.ArgumentParser) -> None:

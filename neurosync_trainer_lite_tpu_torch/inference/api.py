@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.data.processing import extract_audio_features
 from neurosync_trainer_lite_tpu_torch.inference import device_pipeline as dp
 from neurosync_trainer_lite_tpu_torch.inference.chunked import process_audio_features
@@ -36,6 +36,7 @@ def generate_facial_data_from_bytes(audio_bytes: bytes, model, cfg: Config,
     Runs where `device` says (the CUDA card by default); the model's weights
     must already live there.
     """
+    check_servable(cfg)
     if pipeline == "device":
         return dp.generate_facial_data_from_bytes_device(
             audio_bytes, model, cfg, use_smoothing, device)

@@ -68,7 +68,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.inference.chunked import (
     decode_chunks_batched,
 )
@@ -226,6 +226,7 @@ class MultiStreamer:
                  decode_bucket_cap: int | None | str = "auto",
                  push_seconds: float | None = None,
                  push_formats: tuple = ("f32", "s16"), device=None):
+        check_servable(cfg)
         self.model = model
         self.cfg = cfg
         self._device = check_model_device(model, device)

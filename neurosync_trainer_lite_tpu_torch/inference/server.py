@@ -47,7 +47,7 @@ from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.inference.api import (
     generate_facial_data_from_bytes,
 )
@@ -219,6 +219,7 @@ def serve(model, cfg: Config, host: str = "127.0.0.1", port: int = 8200,
           audio_format: str = "both", background_warmup: bool = False,
           serve_buckets: int | None = None, device=None):
     """A bound server (port 0: an ephemeral one); call serve_forever()."""
+    check_servable(cfg)
     return server_class((host, port),
                         make_handler(model, cfg, max_sessions=max_sessions,
                                      fused_ticks=fused_ticks,

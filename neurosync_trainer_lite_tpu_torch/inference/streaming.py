@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.data.processing import BLENDSHAPE_SCALE
 from neurosync_trainer_lite_tpu_torch.inference.chunked import (
     blend_chunks,
@@ -232,6 +232,7 @@ class BlendshapeStreamer:
 
     def __init__(self, model, cfg: Config, *, extract_features=None,
                  smooth: bool = False, device=None):
+        check_servable(cfg)
         self.model = model
         self.cfg = cfg
         self._device = check_model_device(model, device)

@@ -326,7 +326,7 @@ def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
 def multi_head_attention(p, query, key, value, *, num_heads: int,
                          dropout_rate: float = 0.0, seed=None,
                          train: bool = False, use_rope: bool = True,
-                         impl: str = "auto"):
+                         impl: str = "auto", out_dropout: bool = True):
     """p has the linears q_linear, k_linear, v_linear and out_linear
     (models/seq2seq.py:Linear, called on [..., in]).
 
@@ -334,7 +334,9 @@ def multi_head_attention(p, query, key, value, *, num_heads: int,
     parallelism q, k and v return this rank's num_heads heads (of width
     h each) and out_linear sums the ranks' heads back to the width H. In
     training, `seed` splits into the attention-weight and the residual
-    dropout sites.
+    dropout sites; out_dropout=False leaves the residual site out (its
+    seed is split all the same), for a layer that drops the attention's
+    output once itself where the Seq2Seq drops it twice.
     """
     B, Tq, _ = query.shape
     q = p.q_linear(query)
@@ -363,4 +365,6 @@ def multi_head_attention(p, query, key, value, *, num_heads: int,
                    impl=impl)
         out = out.transpose(1, 2).reshape(B, Tq, width)
     out = p.out_linear(out)
+    if not out_dropout:
+        return out
     return dropout(out, dropout_rate, seed_resid, train)

@@ -277,7 +277,7 @@ def gather_state_dict(model, mesh=None, dst: int = 0, optimizer=None):
     out = {"model": {k: _gather_leaf(v, param_spec(k), mesh, keep)
                      for k, v in model.state_dict().items()}}
     if optimizer is not None:
-        names = [k for k, _ in model.named_parameters()]
+        names = [k for k, p in model.named_parameters() if p.requires_grad]
         osd = optimizer.state_dict()
         out["optimizer"] = {**osd, "state": {
             i: {k: _gather_leaf(v, None if k == "step" else

@@ -53,7 +53,7 @@ from datetime import datetime
 
 import torch
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.parallel import distributed
 from neurosync_trainer_lite_tpu_torch.parallel.mesh import Mesh
 from neurosync_trainer_lite_tpu_torch.training.step import (
@@ -287,6 +287,7 @@ def save_final_model(model: torch.nn.Module, cfg: Config,
 def load_model(model_path: str, cfg: Config, device=None):
     """A model in eval mode from a reference-format model.pth or from one of
     the port's checkpoint directories (weights only)."""
+    check_servable(cfg)
     if not os.path.isdir(model_path):
         return load_pth(model_path, cfg, device)
     from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq

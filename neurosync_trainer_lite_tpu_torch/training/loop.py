@@ -54,6 +54,7 @@ from neurosync_trainer_lite_tpu_torch.data.windowing import (
     prepare_datasets,
     to_device,
 )
+from neurosync_trainer_lite_tpu_torch.models.architectures import architecture
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
     Seq2Seq,
     count_parameters,
@@ -417,7 +418,13 @@ def train_model(cfg: Config, clips=None, *, mesh=None, verbose=True,
 
     have_val_assets = (os.path.exists(cfg.audio_path)
                        and os.path.exists(cfg.ground_truth_path))
-    if save_artifacts and not have_val_assets:
+    if not architecture(cfg.architecture).served:
+        # the fixed-wav validation serves the model
+        have_val_assets = False
+        if save_artifacts:
+            print(f"per-epoch fixed-wav validation is off for the "
+                  f"{cfg.architecture!r} architecture, which is not served")
+    elif save_artifacts and not have_val_assets:
         print(f"WARNING: per-epoch validation is DISABLED — golden pair not "
               f"found (audio_path={cfg.audio_path!r} "
               f"exists={os.path.exists(cfg.audio_path)}, "

@@ -8,6 +8,10 @@ cfg.grad_accum_steps = A > 1 the batch splits into A micro-batches, run one
 after the other with one seed each; their fp32 gradients and losses are
 summed and divided by A, and one update follows, as the JAX step's scan.
 
+The model is the one cfg.architecture names (models/architectures.py: the
+Seq2Seq or wav2vec 2.0); leaves that take no gradient (wav2vec2's frozen
+feature encoder) get no Adam state and no share of the clip's norm.
+
 PyTorch runs eagerly: the step is a Python function over a TrainState that
 it updates in place (the JAX step donates its state). Remat comes with the
 model (cfg.remat and its knobs, models/seq2seq.py).
@@ -52,7 +56,9 @@ from neurosync_trainer_lite_tpu_torch.models.loss import (
     loss_fn,
     smoothness_loss_fn,
 )
-from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq, init_seq2seq
+from neurosync_trainer_lite_tpu_torch.models.architectures import architecture
+from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
+from neurosync_trainer_lite_tpu_torch.models.wav2vec2 import Wav2Vec2
 from neurosync_trainer_lite_tpu_torch.ops.attention import dropout_rows
 from neurosync_trainer_lite_tpu_torch.parallel.distributed import (
     all_reduce_mean_,
@@ -76,9 +82,15 @@ from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
 from neurosync_trainer_lite_tpu_torch.utils.profiling import span
 
 
+def trainable(model) -> list[tuple[str, torch.nn.Parameter]]:
+    """The (name, parameter) pairs that train: all but frozen ones (the
+    wav2vec2 feature encoder's), which get no gradient and no Adam state."""
+    return [(k, p) for k, p in model.named_parameters() if p.requires_grad]
+
+
 @dataclass
 class TrainState:
-    model: Seq2Seq
+    model: Seq2Seq | Wav2Vec2
     optimizer: torch.optim.Adam
     schedule: Callable[[int], float]
 
@@ -110,22 +122,24 @@ def init_train_state(cfg: Config, steps_per_epoch: int, *,
     dicts) its shard."""
     mesh = resolve_mesh(cfg, mesh)
     device = resolve_device(device)
+    arch = architecture(cfg.architecture)
     if state_dict is None:
         if generator is None:
             raise ValueError("init_train_state needs a generator or a "
                              "state_dict")
-        model = init_seq2seq(cfg, generator, device, mesh)
+        model = arch.init(cfg, generator, device, mesh)
     else:
-        model = Seq2Seq(cfg, device, mesh)
+        model = arch.model(cfg, device, mesh)
         model.load_state_dict(shard_state_dict(state_dict, cfg, mesh),
                               strict=True)
         del state_dict
     model.train()
-    state = TrainState(model, make_optimizer(cfg, model.parameters()),
+    params = trainable(model)
+    state = TrainState(model, make_optimizer(cfg, [p for _, p in params]),
                        make_schedule(cfg, steps_per_epoch))
     if optimizer_state is not None:
         state.optimizer.load_state_dict(shard_optimizer_state(
-            optimizer_state, [k for k, _ in model.named_parameters()], mesh))
+            optimizer_state, [k for k, _ in params], mesh))
     _broadcast_state(state, mesh)
     return state
 

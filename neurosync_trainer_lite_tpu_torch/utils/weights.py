@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.config import Config, check_servable
 from neurosync_trainer_lite_tpu_torch.models.seq2seq import Seq2Seq
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
 
@@ -43,6 +43,7 @@ _ATTN_KEYS = {"q": "q_linear", "k": "k_linear", "v": "v_linear",
 
 def load_model(path: str, cfg: Config, device=None) -> Seq2Seq:
     """A reference-format ``model.pth``, loaded strictly, in eval mode."""
+    check_servable(cfg)
     device = resolve_device(device)
     sd = torch.load(path, map_location=device, weights_only=True)
     model = Seq2Seq(cfg, device)
