@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only compat     # phases 1, 2 and 14 alone
     python3 chip_smoke.py --only tools      # phases 1, 2 and 15 alone
     python3 chip_smoke.py --only ln         # phases 1, 2, 4 and 5 alone
+    python3 chip_smoke.py --only la         # the same for the lean attention
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -59,7 +60,11 @@ exits non-zero before its result line.
    (K3's and the K4 backward's: all five, split-bf16; the K4 forward's
    two, whose split-bf16 count as executed is printed beside it) and all
    other operations at the fp32 CUDA cores'; K3 also prints its exps' time
-   on the MUFU.
+   on the MUFU. The LayerNorm and the lean attention kernels (ln_checks,
+   la_checks) run both phases at their own shapes; la_checks holds the
+   lean attention pair against its plain pair at every training site's
+   [128, 16, 128, 64] and a tp = 2 rank's [128, 8, 128, 64] and times it
+   beside SDPA with dropout_p 0.3 (the `lean_attention` record).
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -104,9 +109,13 @@ exits non-zero before its result line.
    backward; (c) window 512 x batch 32, dropout 0, 'auto', which runs K3.
    Checks a finite loss and grad norm at every step, the fixed batch's
    loss (dropout off) lower after the steps than before, and the kernel
-   launch counts of one step (K1 = 100 at (a); K1 = 52, K4 forward = 24,
+   launch counts of one step (K1 = 100 and the lean attention forward and
+   backward 24 each at (a); K1 = 52, K4 forward = 24,
    K4 backward = 24 at (b); K1 = 100, K3 forward 24 and backward 24 + 24
-   at (c)). Prints samples/s (median and quartiles of 10 steps after 3
+   at (c)). One step of (a) with remat=True launches the lean attention
+   forward 48 times and its backward 24, and its loss, grad norm and
+   every gradient equal the step's without remat (relative 1e-6).
+   Prints samples/s (median and quartiles of 10 steps after 3
    warm-up steps), peak device memory, and the card's busy share and top
    kernels of one profiled step; at (b) the K4 backward's, the K4
    forward's and K1's shares of the device time, the forward's and the
@@ -233,6 +242,7 @@ launches_by_path: each run's own count); the last line the result.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -293,6 +303,19 @@ TP_DP_CONFIG = TP_PLANTED_CONFIG = "'auto', dropout 0.3, FFN through K2"
 #: LayerNorm's once; a rank of tensor parallelism runs them all (replicated)
 LN_FORWARD = {"layer_norm_fwd": 8 * 2 + 8 * 3 + 2}
 LN_STEP = {**LN_FORWARD, "layer_norm_bwd": LN_FORWARD["layer_norm_fwd"]}
+#: the lean attention kernels (csrc/lean_attention.cu) in a bf16 training
+#: step at windows up to 128 off K4: a forward and a backward at each of
+#: the 24 sites (8 encoder and 8 decoder self-attentions, 8
+#: cross-attentions), at dropout 0 too; a rank of tensor parallelism runs
+#: them over its heads
+LA_STEP = {"lean_attention_fwd": 24, "lean_attention_bwd": 24}
+#: a step of (a) with every layer rematted: the backward launches the lean
+#: attention forward again at each site, K1 again for q and k (48), and
+#: the LayerNorm forward again for each LayerNorm inside a layer (40; the
+#: stacks' final ones are outside the layers)
+LA_REMAT_STEP = {"rope_rotate": 148, **LN_STEP,
+                 "layer_norm_fwd": LN_STEP["layer_norm_fwd"] + 40,
+                 "lean_attention_fwd": 48, "lean_attention_bwd": 24}
 #: kernel launches of one step at each, and the 'model' all-reduces of one
 #: full-width step (8 + 8 layers): a row-parallel linear's forward (2 an
 #: encoder layer, 3 a decoder layer), a column-parallel linear's backward
@@ -303,7 +326,8 @@ TP_LAUNCHES = {"'pallas', dropout 0": {"rope_rotate": 52,
                                        **LN_STEP},
                "'auto', dropout 0.3, FFN through K2": {"rope_rotate": 100,
                                                        "ffn_bwd_dh1": 16,
-                                                       **LN_STEP}}
+                                                       **LN_STEP,
+                                                       **LA_STEP}}
 TP_COLLECTIVES = {"forward": 8 * 2 + 8 * 3, "backward": 8 * 4 + 8 * 7,
                   "grad_norm": 1}
 #: (t2)'s fp32 MeshDecoder against one process, a share of max|out|
@@ -332,10 +356,10 @@ STEP_PROBES = {
 #: each step_probe run's kernel launches a step (phase 8's and 9's counts
 #: of the same configuration), read from the probe's stderr
 STEP_PROBE_LAUNCHES = {
-    "a": {"rope_rotate": 100, **LN_STEP},
+    "a": {"rope_rotate": 100, **LN_STEP, **LA_STEP},
     "b": {"rope_rotate": 52, "fused_rope_attention": 24,
           "fused_rope_attention_bwd": 24, **LN_STEP},
-    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP},
+    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP},
     "c": {"rope_rotate": 100, "flash_attention": 24,
           "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24,
           **LN_STEP},
@@ -1314,6 +1338,162 @@ def ln_checks(torch, records):
     torch.cuda.empty_cache()
 
 
+def la_checks(torch, records):
+    """Phases 4 and 5 for the lean attention kernels
+    (csrc/lean_attention.cu): both against the plain pair at every training
+    site's [128, 16, 128, 64] (thresholds 0, 26 and 77: no dropout,
+    wav2vec2's 0.1, the Seq2Seq's 0.3) and a tp = 2 rank's [128, 8, 128,
+    64] (its heads' bits a strided block of the global draw), on the head
+    split's strided views; each output within two bf16 roundings of its
+    terms' size and 99% bitwise, both kernels bitwise repeatable; then
+    timed at both shapes at 0.3 beside the plain pair, the bound and SDPA
+    with dropout_p 0.3 (a yardstick of speed only: another mask, and the
+    port never calls it)."""
+    import torch.nn.functional as F
+
+    from neurosync_trainer_lite_tpu_torch.ops import attention as attn
+    from neurosync_trainer_lite_tpu_torch.ops import lean_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, T, h = 128, 128, 64
+
+    def operands(n):
+        def heads():
+            return (torch.randn(B, T, n * h, device="cuda", generator=gen)
+                    .bfloat16().reshape(B, T, n, h).transpose(1, 2))
+        return heads(), heads(), heads(), heads()
+
+    def terms(q, k, v, dout, bits, scale, qth):
+        # each output's terms' size, from the plain pair's bf16
+        # intermediates: a w, dw or ds a sum-order flip away from plain's
+        # moves a term by one rounding, the output's own is the other
+        w, wd, keep = attn._plain_weights(q, k, bits, scale, qth)
+        dw = attn._matmul_round_once(dout, v.transpose(-1, -2))
+        if keep is not None:
+            dw = attn._drop(dw, keep, qth)
+        wf, dwf = w.float(), dw.float()
+        ds = scale * wf * (dwf.abs() + (dwf * wf).sum(-1, True).abs())
+        a = wd.float().abs()
+        return (a @ v.float().abs(), ds @ k.float().abs(),
+                ds.transpose(-1, -2) @ q.float().abs(),
+                a.transpose(-1, -2) @ dout.float().abs())
+
+    worst = 0.0
+    shapes = (("training", 16, None, (0, 26, 77)),
+              ("tp = 2 rank", 8, (1, 0, 2, 1), (77,)))
+    for label, n, blocks, thresholds in shapes:
+        q, k, v, dout = operands(n)
+        scale = h ** -0.5
+        for qth in thresholds:
+            with attn.dropout_rows(*(blocks or (1, 0))):
+                bits = attn.draw_bits(11, q, k, qth)
+            out = la.lean_attention_fwd_cuda(q, k, v, bits, scale, qth)
+            grads = la.lean_attention_bwd_cuda(dout, q, k, v, bits, scale,
+                                               qth)
+            torch.cuda.synchronize()
+            want = (attn.lean_attention_plain_fwd(q, k, v, bits, scale, qth),
+                    *attn.lean_attention_plain_bwd(dout, q, k, v, bits, scale,
+                                                 qth))
+            got = (out, *grads)
+            for name, a, e, size in zip(("out", "dq", "dk", "dv"), got, want,
+                                        terms(q, k, v, dout, bits, scale,
+                                              qth)):
+                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+                    size, e.float().abs()).clamp_min(2.0 ** -100))) - 7)
+                diff = (a.float() - e.float()).abs()
+                worst = max(worst, diff.max().item())
+                same = (a == e).float().mean().item()
+                check(a.dtype == e.dtype == torch.bfloat16
+                      and a.shape == e.shape
+                      and bool((diff <= 2 * ulp).all()) and same >= 0.99,
+                      f"LA {label} q={qth} {name} [{B}, {n}, {T}, {h}] within "
+                      f"two bf16 roundings of its terms' size of the plain "
+                      f"pair, {same:.6f} of it bitwise (max abs err "
+                      f"{diff.max().item():.3e}, "
+                      f"{(diff / ulp).max().item():.3f} roundings)")
+                del ulp, diff, size
+            again = (la.lean_attention_fwd_cuda(q, k, v, bits, scale, qth),
+                     *la.lean_attention_bwd_cuda(dout, q, k, v, bits, scale,
+                                                 qth))
+            check(all(torch.equal(a, e) for a, e in zip(got, again)),
+                  f"LA {label} q={qth}: both kernels bitwise repeatable")
+            del out, grads, want, got, again
+        torch.cuda.empty_cache()
+
+    by_shape = {}
+    for label, n, blocks, _ in shapes:
+        # two operand sets taken in turn (4 x 16.8 MB and 33.6 MB of bits
+        # each at 16 heads, past the 50 MB L2)
+        sets = []
+        for _ in range(2):
+            ops = operands(n)
+            with attn.dropout_rows(*(blocks or (1, 0))):
+                sets.append((*ops, attn.draw_bits(12, ops[0], ops[1], 77)))
+        scale, turn = h ** -0.5, itertools.count()
+
+        def rotating(fn):
+            return lambda: fn(*sets[next(turn) % 2])
+
+        with torch.no_grad():
+            fwd = dict(
+                ms=device_ms(rotating(lambda q, k, v, do, bits:
+                                      la.lean_attention_fwd_cuda(
+                                          q, k, v, bits, scale, 77))),
+                plain_ms=device_ms(rotating(lambda q, k, v, do, bits:
+                                            attn.lean_attention_plain_fwd(
+                                                q, k, v, bits, scale, 77))),
+                library_ms=event_ms(rotating(
+                    lambda q, k, v, do, bits: F.scaled_dot_product_attention(
+                        q, k, v, dropout_p=0.3)), iters=20))
+            bwd = dict(
+                ms=device_ms(rotating(lambda q, k, v, do, bits:
+                                      la.lean_attention_bwd_cuda(
+                                          do, q, k, v, bits, scale, 77))),
+                plain_ms=device_ms(rotating(lambda q, k, v, do, bits:
+                                            attn.lean_attention_plain_bwd(
+                                                do, q, k, v, bits, scale,
+                                                77))))
+        leaves = [[t.detach().requires_grad_(True) for t in ops[:3]]
+                  for ops in sets]
+
+        def sdpa_fwd_bwd(i=itertools.count()):
+            j = next(i) % 2
+            out = F.scaled_dot_product_attention(*leaves[j], dropout_p=0.3)
+            torch.autograd.grad(out, leaves[j], sets[j][3])
+
+        bwd["library_fwd_bwd_ms"] = event_ms(sdpa_fwd_bwd, iters=20)
+        # the least bytes: q, k, v read and out written (forward), q, k, v,
+        # dout read and dq, dk, dv written (backward), in bf16; the bits
+        # (33.6 MB at 16 heads) are left out, as lattn_roofline_pct.train
+        # leaves them out. Products: q·kᵀ and wd·v forward (4 B·n·T²·h),
+        # q·kᵀ, dout·vᵀ, wdᵀ·dout, ds·k and dsᵀ·q backward, the recompute
+        # not counted (8 B·n·T²·h)
+        elems, pairs = B * n * T * h, B * n * T * T
+        fwd["bound_ms"], fwd["bound_by"] = bound(4 * 2 * elems, 0,
+                                                 4 * pairs * h)
+        bwd["bound_ms"], bwd["bound_by"] = bound(7 * 2 * elems, 0,
+                                                 8 * pairs * h)
+        for rec in (fwd, bwd):
+            rec["shape"] = [B, n, T, h]
+        print_timed("lean_attention_fwd", label, fwd)
+        print_timed("lean_attention_bwd", label, bwd)
+        print(f"time lean_attention ({label}) SDPA with dropout 0.3: forward "
+              f"{fwd['library_ms']:.6f} ms, forward + backward "
+              f"{bwd['library_fwd_bwd_ms']:.6f} ms (CUDA events)", flush=True)
+        by_shape[label] = {"forward": fwd, "backward": bwd}
+        check(fwd["bound_by"] == bwd["bound_by"] == "bytes",
+              f"LA {label} bound by its bytes")
+        if label == "training":
+            records["lean_attention"].update(
+                {key: fwd[key] + bwd[key] for key in ("ms", "plain_ms",
+                                                      "bound_ms")},
+                library_ms=fwd["library_ms"], bound_by="bytes",
+                shape=[B, n, T, h])
+        del sets, leaves
+        torch.cuda.empty_cache()
+    records["lean_attention"].update(max_abs_err=worst, by_shape=by_shape)
+
+
 def serve_long(torch, np):
     """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
     at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
@@ -1956,6 +2136,7 @@ def train_config(torch, cfg, weights, src, trg, label, expected, *,
     check(launches == expected, f"kernel launches of one training step at "
           f"{label}: {launches} == {expected}")
     times = []
+    gc.collect()   # no earlier phase's garbage collected in the timed steps
     for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1997,7 +2178,7 @@ def train(torch):
 
     configs = {"a": Config(), "b": Config(attention_impl="pallas",
                                           dropout=0.0)}
-    expected = {"a": {"rope_rotate": 100, **LN_STEP},
+    expected = {"a": {"rope_rotate": 100, **LN_STEP, **LA_STEP},
                 "b": {"rope_rotate": 52, "fused_rope_attention": 24,
                       "fused_rope_attention_bwd": 24, **LN_STEP}}
     base = configs["a"]
@@ -2037,11 +2218,69 @@ def train(torch):
         torch, configs["b"], weights, src, trg, composed="auto",
         kernel="pallas", module=fua, wrapper="fused_rope_attention_bwd_cuda",
         planted=lose_head0_dq, what="K4")
+    main_path.update(train_remat_lean(torch, configs["a"], weights, src,
+                                      trg))
     main_path.update(train_ffn_fused(torch, configs["a"], weights, src, trg,
                                      medians))
     main_path.update(train_long_windows(torch, weights, medians))
     step_a["medians_ms"] = medians
     return main_path, step_a
+
+
+def train_remat_lean(torch, cfg, weights, src, trg) -> dict:
+    """(a) with remat=True: one step of cfg (window 128, bf16, dropout 0.3)
+    with every layer rematted and one without, from the same weights,
+    batch and dropout seeds. The rematted step launches the lean attention
+    forward again in the backward at each of the 24 sites (LA_REMAT_STEP:
+    48 + 24), K1 again for q and k and the layers' LayerNorm forwards again;
+    its loss, grad norm and every parameter's gradient equal the step's
+    without remat (relative 1e-6; bitwise printed)."""
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
+    from neurosync_trainer_lite_tpu_torch.training.step import (
+        init_train_state, make_train_step)
+
+    runs = {"no remat": (cfg, {"rope_rotate": 100, **LN_STEP, **LA_STEP}),
+            "remat 'all'": (cfg.replace(remat=True), LA_REMAT_STEP)}
+    got = {}
+    for name, (run_cfg, expected) in runs.items():
+        state = init_train_state(run_cfg, 1000, device="cuda",
+                                 state_dict=weights)
+        step = make_train_step(run_cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        _, loss, norm = step(state, src, trg, torch.Generator().manual_seed(4))
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        check(launches == expected, f"train (a) {name}: kernel launches of "
+              f"one step {launches} == {expected}")
+        grads = {key: p.grad.detach().clone()
+                 for key, p in state.model.named_parameters()
+                 if p.grad is not None}
+        got[name] = (float(loss), float(norm), grads, launches)
+        del state, step
+        torch.cuda.empty_cache()
+    ref_loss, ref_norm, ref_grads, _ = got["no remat"]
+    loss, norm, grads, launches = got["remat 'all'"]
+    check(grads.keys() == ref_grads.keys() and len(grads) > 0,
+          f"train (a) remat 'all': gradients of the same {len(ref_grads)} "
+          f"parameters as without remat")
+    gap = max(abs(loss - ref_loss) / abs(ref_loss),
+              abs(norm - ref_norm) / abs(ref_norm))
+    worst = max(((grads[key] - g).abs().max()
+                 / g.abs().max().clamp_min(1e-30)).item()
+                for key, g in ref_grads.items())
+    bitwise = (loss == ref_loss and norm == ref_norm
+               and all(torch.equal(grads[key], g)
+                       for key, g in ref_grads.items()))
+    check(gap <= 1e-6 and worst <= 1e-6,
+          f"train (a) remat 'all' (window 128, dropout 0.3, the lean "
+          f"attention kernels): loss {loss:.6f} and grad norm {norm:.6f} "
+          f"equal the no-remat step's (largest relative difference "
+          f"{gap:.3e}), every gradient within {worst:.3e} of its largest "
+          f"magnitude (bitwise {bitwise})")
+    del got, grads, ref_grads
+    torch.cuda.empty_cache()
+    return {"train (a) remat 'all'": launches}
 
 
 def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
@@ -2062,7 +2301,7 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
     try:
         launches, _, _, med, profiled = train_config(
             torch, cfg, weights, src, trg, label,
-            {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP},
+            {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP},
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     finally:
         seq2seq._ffn = default
@@ -2071,8 +2310,8 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
         "K2": (r"ffn_bwd_wgmma_kernel", r"ffn_bwd_wmma_kernel"),
         "K1": (r"rope_rows", None)})
     train_config(torch, cfg, weights, src, trg, "(e) with the default _ffn "
-                 "again", {"rope_rotate": 100, **LN_STEP}, warmup=0, timed=0,
-                 profile=False, falls=False)
+                 "again", {"rope_rotate": 100, **LN_STEP, **LA_STEP},
+                 warmup=0, timed=0, profile=False, falls=False)
 
     sound = ffn_bwd.ffn_bwd_dh1_cuda
 
@@ -2337,8 +2576,8 @@ def attention_gradients_in_model(torch, cfg, weights, src, trg, *, composed,
                                  what) -> None:
     """An attention kernel's gradients inside the model: one step of cfg
     (dropout 0) at the `composed` impl, where attention takes the lean
-    composed core, and at the `kernel` impl, where it takes the kernel
-    (`what`) forward and backward, each held against the same step in fp32
+    core (its kernels at windows up to 128), and at the `kernel` impl,
+    where it takes the kernel (`what`) forward and backward, each held against the same step in fp32
     at `composed`; a planted fault, the kernel's backward (module.wrapper)
     losing head 0's dq, must be caught (gradients_in_model)."""
     gradients_in_model(
@@ -2869,7 +3108,7 @@ def parallel(torch, np) -> dict:
              "parallel (p3)": summed(r["decode"]["launches"] for r in p2),
              "parallel (p4)": summed(r["train_model"]["launches"] for r in p2)}
     want = {"rope_rotate": 100 * DP_STEPS,
-            **{k: n * DP_STEPS for k, n in LN_STEP.items()}}
+            **{k: n * DP_STEPS for k, n in {**LN_STEP, **LA_STEP}.items()}}
     check(p1["launches"] == want, f"(p1) kernel launches of {DP_STEPS} "
           f"steps of (a): {p1['launches']} == {want}")
     for path in ("parallel (p2)", "parallel (p3)"):   # 'pallas' runs K4
@@ -3512,6 +3751,7 @@ def compat_step_timer(torch, compat, step_a) -> None:
     seeds = torch.Generator().manual_seed(4)
     timer = StepTimer(sync_every=COMPAT_SYNC_EVERY)
     losses = []
+    gc.collect()   # no earlier phase's garbage collected in the timed steps
     torch.cuda.synchronize()
     for _ in range(COMPAT_TIMER_STEPS):
         optimizer.zero_grad(set_to_none=True)
@@ -3750,6 +3990,7 @@ def tools(torch, np, step_a=None, request_fps=None) -> dict:
     request_fps = request_fps or {}
 
     def counted(mode):
+        gc.collect()   # no earlier phase's garbage collected in its timing
         torch.cuda.synchronize()
         kernels.reset_launches()
         records = bench.MODES[mode](None, "cuda")
@@ -3760,11 +4001,11 @@ def tools(torch, np, step_a=None, request_fps=None) -> dict:
     steps = 2 * (bench.TRAIN_WARMUP + bench.TRAIN_TIMED)
     (d0, head), paths["bench train"] = counted("train")
     check(paths["bench train"] == {"rope_rotate": 100 * steps,
-                                   **{k: n * steps
-                                      for k, n in LN_STEP.items()}},
+                                   **{k: n * steps for k, n in
+                                      {**LN_STEP, **LA_STEP}.items()}},
           f"(b1) bench train: {steps} steps of (a)'s geometry at dropout 0 "
-          f"and 0.3 launched {paths['bench train']} == K1 100 and the "
-          f"LayerNorm 42 + 42 a step")
+          f"and 0.3 launched {paths['bench train']} == K1 100, the "
+          f"LayerNorm 42 + 42 and the lean attention 24 + 24 a step")
     check(d0["metric"] == "228M_train_samples_per_sec_per_chip_dropout0"
           and head["metric"]
           == "228M_train_samples_per_sec_per_chip_dropout0.3"
@@ -3932,7 +4173,13 @@ def profile_once(torch, fn, label: str, top: int) -> dict[str, float]:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}", flush=True)
-    return {e.key: e.self_device_time_total / 1e3 for e in events}
+    by_kernel = {e.key: e.self_device_time_total / 1e3 for e in events}
+    # the profiler's events form cycles (each points at its parent and its
+    # children; a training step's leave ~0.3M objects): free them here, not
+    # in a full collection inside a later timed window
+    del prof, events
+    gc.collect()
+    return by_kernel
 
 
 def main() -> int:
@@ -3942,10 +4189,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("serve-s2", "live", "parallel", "tensor",
-                           "compat", "tools", "ln"),
+                           "compat", "tools", "ln", "la"),
         help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
              "(parallel), 13 (tensor), 14 (compat), 15 (tools) or 4 and 5 "
-             "(ln, the LayerNorm kernels) alone, printing no result line: "
+             "(ln, the LayerNorm kernels; la, the lean attention kernels) "
+             "alone, printing no result line: "
              "to time the (s2) request or the live run of two trees side by "
              "side")
     parser.add_argument("--parallel-worker", nargs=4,
@@ -3983,6 +4231,7 @@ def main() -> int:
          "tensor": tensor, "compat": compat_surface,
          "tools": tools,
          "ln": lambda torch, _: ln_checks(torch, {"layer_norm": {}}),
+         "la": lambda torch, _: la_checks(torch, {"lean_attention": {}}),
          }[args.only](torch, np)
         print(card, flush=True)
         return 0
@@ -4021,6 +4270,13 @@ def main() -> int:
             tolerance="out, dx one bf16 ulp of their terms' size and 99% "
                       "bitwise; dweight, dbias 1e-5*norm(plain)",
             launch_names=["layer_norm_fwd", "layer_norm_bwd"]),
+        "lean_attention": dict(
+            route="cuda", source=source + "lean_attention.cu",
+            replaces="none: the JAX package's ops/attention.py:138 "
+                     "_sdpa_lean_core (custom VJP), fused by XLA",
+            tolerance="out, dq, dk, dv two bf16 roundings of their terms' "
+                      "size and 99% bitwise",
+            launch_names=["lean_attention_fwd", "lean_attention_bwd"]),
         "ffn_bwd_dh1": dict(
             route="cuda", source=source + "ffn_bwd.cu",
             replaces="neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py:115",
@@ -4032,6 +4288,7 @@ def main() -> int:
     k3_checks(torch, records)
     k2_checks(torch, records)
     ln_checks(torch, records)
+    la_checks(torch, records)
     reference_goldens(torch, np)
     paths, request_fps = {}, {}
     paths["serve"], request_fps = serve(torch, np)
@@ -4055,13 +4312,14 @@ def main() -> int:
               "the K3 backward launched its two kernels alike")
         if "flash_attention_bwd_dq" in counts:
             counts["flash_attention_bwd"] = counts["flash_attention_bwd_dq"]
-    for name in records["layer_norm"]["launch_names"]:
-        check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
-              f"{name} ran in the main path runs")
-    for counts in paths.values():   # the LayerNorm's two kernels
-        if "layer_norm_fwd" in counts:
-            counts["layer_norm"] = (counts["layer_norm_fwd"]
-                                    + counts.get("layer_norm_bwd", 0))
+    for pair in ("layer_norm", "lean_attention"):   # two kernels each
+        for name in records[pair]["launch_names"]:
+            check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
+                  f"{name} ran in the main path runs")
+        for counts in paths.values():
+            if f"{pair}_fwd" in counts:
+                counts[pair] = (counts[f"{pair}_fwd"]
+                                + counts.get(f"{pair}_bwd", 0))
     for name in records:
         check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
               f"{name} ran in the main path runs")

@@ -14,9 +14,12 @@ JAX path:
   products of bf16 values are exact in fp32).
 - bf16 scores are rounded to bf16, scaled by the bf16 scale, softmaxed in
   fp32 and rounded to bf16; weights·v accumulates in fp32 and rounds once.
-- Training in bf16 runs _sdpa_lean_core, whose backward recomputes the
+- Training in bf16 runs _SdpaLeanCore, whose backward recomputes the
   scores, the softmax and the dropout mask from (q, k, v, seed) with bf16
-  scores and ds and fp32 softmax statistics, as the JAX custom VJP does.
+  scores and ds and fp32 softmax statistics, as the JAX custom VJP does;
+  on the card one hand-written kernel a pass (ops/lean_attention.py,
+  csrc/lean_attention.cu) at windows up to 128 and the head widths K3
+  takes, the plain pair below beyond (lean_attention.supports).
 - sdpa takes the flash-attention kernel K3 (ops/flash_attention.py), fp32
   inside, where the JAX sdpa takes its Pallas flash kernel: long key
   strips at 'auto', any length at 'pallas', never with attention dropout;
@@ -51,6 +54,7 @@ import torch
 
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+from neurosync_trainer_lite_tpu_torch.ops import lean_attention as la
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_qk_preheads
 from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 
@@ -169,13 +173,15 @@ def dropout_rows(n_blocks: int, index: int, width_blocks: int = 1,
         _BLOCKS = saved
 
 
-def dropout_keep(seed: int, shape, q: int, device,
+def dropout_bits(seed: int, shape, device,
                  split_dim: int | None = None) -> torch.Tensor:
-    """The shared keep-mask draw: uint8 bits from a generator seeded with
-    `seed`, keep iff bits >= q. A pure function of (seed, shape, device,
-    split_dim) and the blocks (dropout_rows), so every caller redrawing
-    with the same seed gets the same mask. split_dim: the dim of `shape`
-    that holds this rank's block of a width sharded over 'model'."""
+    """The shared mask draw: uint8 bits of `shape` from a generator seeded
+    with `seed`. A pure function of (seed, shape, device, split_dim) and the
+    blocks (dropout_rows), so every caller redrawing with the same seed gets
+    the same bits. split_dim: the dim of `shape` that holds this rank's
+    block of a width sharded over 'model'. The bits are a view of the
+    global draw: rows (dim 0) a contiguous block of it, a split_dim block
+    strided."""
     n, i, nw, j = _BLOCKS
     full = [*shape]
     full[0] *= n
@@ -188,7 +194,13 @@ def dropout_keep(seed: int, shape, q: int, device,
     bits = bits.narrow(0, i * shape[0], shape[0])
     if split_dim is not None:
         bits = bits.narrow(split_dim, j * shape[split_dim], shape[split_dim])
-    return bits >= q
+    return bits
+
+
+def dropout_keep(seed: int, shape, q: int, device,
+                 split_dim: int | None = None) -> torch.Tensor:
+    """The shared keep mask: keep iff dropout_bits(...) >= q."""
+    return dropout_bits(seed, shape, device, split_dim) >= q
 
 
 def _drop(x: torch.Tensor, keep: torch.Tensor, q: int) -> torch.Tensor:
@@ -251,41 +263,78 @@ class _SoftmaxResidualBf16(torch.autograd.Function):
         return (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
 
 
-def _lean_weights(q, k, seed, scale, qthresh):
+def draw_bits(seed, q: torch.Tensor, k: torch.Tensor, qthresh: int):
+    """The lean core's weight-dropout bits of a [..., Tq, Tk] site (split over
+    'model' along the heads, dim 1), or None where nothing is dropped."""
+    if qthresh == 0:
+        return None
+    return dropout_bits(seed, (*q.shape[:-1], k.shape[-2]), q.device,
+                        split_dim=1)
+
+
+def _plain_weights(q, k, bits, scale, qthresh):
     """The forward chain up to the dropped weights: (w, wd, keep)."""
     s = _matmul_round_once(q, k.transpose(-1, -2)) * _bf16_value(scale)
     w = torch.softmax(s.float(), dim=-1).to(torch.bfloat16)
     if qthresh == 0:
         return w, w, None
-    keep = dropout_keep(seed, w.shape, qthresh, w.device, split_dim=1)
+    keep = bits >= qthresh
     return w, _drop(w, keep, qthresh), keep
+
+
+def lean_attention_plain_fwd(q, k, v, bits, scale: float, qthresh: int):
+    """The lean core's forward in PyTorch ops. q [..., Tq, h], k, v [..., Tk,
+    h] bf16; bits [..., Tq, Tk] uint8 (None where qthresh is 0) → out
+    [..., Tq, h]. The contract the kernels (ops/lean_attention.py) keep."""
+    _, wd, _ = _plain_weights(q, k, bits, scale, qthresh)
+    return _matmul_round_once(wd, v)
+
+
+def lean_attention_plain_bwd(dout, q, k, v, bits, scale: float,
+                             qthresh: int):
+    """The lean core's backward in PyTorch ops: the forward's operands and
+    dout [..., Tq, h] → (dq, dk, dv)."""
+    w, wd, keep = _plain_weights(q, k, bits, scale, qthresh)
+    dv = _matmul_round_once(wd.transpose(-1, -2), dout)
+    dw = _matmul_round_once(dout, v.transpose(-1, -2))
+    if keep is not None:
+        dw = _drop(dw, keep, qthresh)
+    wf, dwf = w.float(), dw.float()
+    ds = (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
+    ds = ds * _bf16_value(scale)
+    dq = _matmul_round_once(ds, k)
+    dk = _matmul_round_once(ds.transpose(-1, -2), q)
+    return dq, dk, dv
 
 
 class _SdpaLeanCore(torch.autograd.Function):
     """bf16 training attention: scores → softmax → weight dropout → ·v, with
-    only (q, k, v, seed) kept for the backward, which recomputes the rest."""
+    only (q, k, v, seed) kept for the backward, which recomputes the rest:
+    the kernels where la.takes_kernel, else the plain pair."""
 
     @staticmethod
     def forward(ctx, q, k, v, seed, scale, qthresh):
         ctx.save_for_backward(q, k, v)
         ctx.seed, ctx.scale, ctx.qthresh = seed, scale, qthresh
-        _, wd, _ = _lean_weights(q, k, seed, scale, qthresh)
-        return _matmul_round_once(wd, v)
+        bits = draw_bits(seed, q, k, qthresh)
+        if la.takes_kernel(q, k):
+            return la.lean_attention_fwd_cuda(
+                la.kernel_view(q), la.kernel_view(k), la.kernel_view(v), bits,
+                scale, qthresh)
+        return lean_attention_plain_fwd(q, k, v, bits, scale, qthresh)
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        w, wd, keep = _lean_weights(q, k, ctx.seed, ctx.scale, ctx.qthresh)
-        dv = _matmul_round_once(wd.transpose(-1, -2), dout)
-        dw = _matmul_round_once(dout, v.transpose(-1, -2))
-        if keep is not None:
-            dw = _drop(dw, keep, ctx.qthresh)
-        wf, dwf = w.float(), dw.float()
-        ds = (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
-        ds = ds * _bf16_value(ctx.scale)
-        dq = _matmul_round_once(ds, k)
-        dk = _matmul_round_once(ds.transpose(-1, -2), q)
-        return dq, dk, dv, None, None, None
+        bits = draw_bits(ctx.seed, q, k, ctx.qthresh)
+        if la.takes_kernel(q, k):
+            grads = la.lean_attention_bwd_cuda(
+                la.kernel_view(dout), la.kernel_view(q), la.kernel_view(k),
+                la.kernel_view(v), bits, ctx.scale, ctx.qthresh)
+        else:
+            grads = lean_attention_plain_bwd(dout, q, k, v, bits, ctx.scale,
+                                             ctx.qthresh)
+        return (*grads, None, None, None)
 
 
 def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
@@ -298,7 +347,9 @@ def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
     takes the composed path. One stated difference: a head width K3 does not
     take (not a multiple of 16, or above 128: fa.HEAD_DIMS) takes the
     composed path too, where the JAX kernel takes any width. CPU and card
-    take the same branch."""
+    take the same branch. bf16 training otherwise takes _SdpaLeanCore: its
+    kernels on the card where lean_attention.supports, its plain pair
+    elsewhere."""
     scale = q.shape[-1] ** -0.5
     kv_len = k.shape[-2]
     use_flash = impl == "pallas" or (impl == "auto"

@@ -1,5 +1,5 @@
-"""Kernels K1, K4, K3 (forward and backward), K2 and the bf16 LayerNorm on
-the card, against their plain versions.
+"""Kernels K1, K4, K3 (forward and backward), K2, the bf16 LayerNorm and
+the lean attention core on the card, against their plain versions.
 
 These tests need a CUDA card and nvcc, and skip without them. They import
 nothing of JAX, so they run on a machine with the card alone:
@@ -29,8 +29,10 @@ from neurosync_trainer_lite_tpu_torch.models import seq2seq
 from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
+from neurosync_trainer_lite_tpu_torch.ops import attention as tattn
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 from neurosync_trainer_lite_tpu_torch.ops import layer_norm_kernel as lnk
+from neurosync_trainer_lite_tpu_torch.ops import lean_attention as la
 from neurosync_trainer_lite_tpu_torch.ops import rope_kernel as rk
 from neurosync_trainer_lite_tpu_torch.ops.attention import _linear
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_tables
@@ -834,3 +836,176 @@ def test_bf16_train_step_runs_the_layer_norm_kernels(gen, monkeypatch):
     assert not {"layer_norm_fwd", "layer_norm_bwd"} & set(runs[False][2])
     assert runs[True][0] == pytest.approx(runs[False][0], rel=1e-2)
     assert runs[True][1] == pytest.approx(runs[False][1], rel=2e-2)
+
+
+# -- the lean attention core (csrc/lean_attention.cu) ----------------------
+
+
+def _lattn_inputs(gen, B, n, tq, tk, h, qthresh, blocks=None, seed=21):
+    """q, k, v and dout as the head split's strided views of [B, T, n·h]
+    (scores of unit size, as the model's are), and the bits that
+    dropout_bits draws for them, under dropout_rows(*blocks) if given."""
+    bf16 = torch.bfloat16
+
+    def heads(t):
+        return (_randn(gen, B, t, n * h, dtype=bf16)
+                .reshape(B, t, n, h).transpose(1, 2))
+
+    q, k, v, dout = heads(tq), heads(tk), heads(tk), heads(tq)
+    ctx = tattn.dropout_rows(*blocks) if blocks else tattn.dropout_rows(1, 0)
+    with ctx:
+        bits = tattn.draw_bits(seed, q, k, qthresh)
+    return q, k, v, dout, bits
+
+
+def _lattn_terms(q, k, v, dout, bits, scale, qthresh):
+    """Each output's terms' size, in fp32 from the plain pair's own bf16
+    intermediates: |wd|·|v| for out, |wd|ᵀ·|dout| for dv, and for dq and dk
+    the same over c·|w|·(|dw| + |Σ dw·w|), the size of ds before its
+    cancellation."""
+    w, wd, keep = tattn._plain_weights(q, k, bits, scale, qthresh)
+    dw = tattn._matmul_round_once(dout, v.transpose(-1, -2))
+    if keep is not None:
+        dw = tattn._drop(dw, keep, qthresh)
+    wf, dwf = w.float(), dw.float()
+    dot = (dwf * wf).sum(-1, keepdim=True)
+    ds = scale * wf * (dwf.abs() + dot.abs())
+    a = wd.float().abs()
+    return (a @ v.float().abs(), ds @ k.float().abs(),
+            ds.transpose(-1, -2) @ q.float().abs(),
+            a.transpose(-1, -2) @ dout.float().abs())
+
+
+def _assert_lattn_close(got, want, terms, what):
+    """got within two bf16 roundings of its terms' size from want (a w, dw
+    or ds a sum-order flip away from plain's moves a term by one rounding;
+    the output's own rounding is the other), and bitwise equal at all but
+    1% of elements: the kernels sum in another order than PyTorch's softmax
+    and cuBLAS, which flips a bf16 rounding now and then, never more."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    size = torch.maximum(terms, want.float().abs()).clamp_min(2.0 ** -100)
+    ulp = torch.exp2(torch.floor(torch.log2(size)) - 7)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2 * ulp).all()), (what, (diff / ulp).max().item())
+    differ = int((got != want).sum())
+    assert differ <= max(2, 0.01 * got.numel()), (what, differ, got.numel())
+
+
+def _check_lattn(q, k, v, dout, bits, qthresh):
+    """Both kernels against the plain pair on the same tensors; each run
+    twice, bitwise equal (no atomics)."""
+    scale = q.shape[-1] ** -0.5
+    out = la.lean_attention_fwd_cuda(q, k, v, bits, scale, qthresh)
+    grads = la.lean_attention_bwd_cuda(dout, q, k, v, bits, scale, qthresh)
+    torch.cuda.synchronize()
+    ref = tattn.lean_attention_plain_fwd(q, k, v, bits, scale, qthresh)
+    want = tattn.lean_attention_plain_bwd(dout, q, k, v, bits, scale, qthresh)
+    t_out, t_dq, t_dk, t_dv = _lattn_terms(q, k, v, dout, bits, scale,
+                                           qthresh)
+    _assert_lattn_close(out, ref, t_out, "out")
+    for name, a, b, t in zip(("dq", "dk", "dv"), grads, want,
+                             (t_dq, t_dk, t_dv)):
+        _assert_lattn_close(a, b, t, name)
+    assert torch.equal(out, la.lean_attention_fwd_cuda(q, k, v, bits, scale,
+                                                       qthresh))
+    again = la.lean_attention_bwd_cuda(dout, q, k, v, bits, scale, qthresh)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("qthresh", [0, 26, 77])
+def test_lean_attention_kernels_at_the_training_shape(gen, qthresh):
+    """[128, 16, 128, 64], every training site's shape in the three
+    cells."""
+    _check_lattn(*_lattn_inputs(gen, 128, 16, 128, 128, 64, qthresh),
+                 qthresh)
+
+
+@pytest.mark.parametrize("tq,tk", [(1, 1), (7, 7), (100, 100), (128, 128),
+                                   (7, 128), (128, 1), (100, 33)])
+@pytest.mark.parametrize("qthresh", [0, 26, 77])
+def test_lean_attention_kernels_at_lengths(gen, tq, tk, qthresh):
+    """One query or key, lengths off the 16-row tile and the 16-byte bits
+    row (7, 100, 33: the byte-wise bits load), Tq != Tk."""
+    _check_lattn(*_lattn_inputs(gen, 3, 4, tq, tk, 64, qthresh), qthresh)
+
+
+@pytest.mark.parametrize("h", fa.HEAD_DIMS)
+def test_lean_attention_kernels_at_every_head_width(gen, h):
+    _check_lattn(*_lattn_inputs(gen, 2, 3, 128, 96, h, 77), 77)
+
+
+@pytest.mark.parametrize("blocks", [(4, 1), (2, 1, 2, 1)])
+def test_lean_attention_kernels_on_a_ranks_bits(gen, blocks):
+    """A DP rank's rows of the global draw (a contiguous block) and a TP
+    rank's heads (strided): the kernels read the bits by their strides."""
+    inputs = _lattn_inputs(gen, 8, 4, 128, 128, 64, 77, blocks=blocks)
+    assert inputs[4].is_contiguous() == (len(blocks) == 2)
+    _check_lattn(*inputs, 77)
+
+
+def test_lean_attention_runs_the_nsync_lattn_symbols(gen):
+    """By the profiler's kernel names, which the benchmark's
+    lattn_roofline_pct.train reads."""
+    q, k, v, dout, bits = _lattn_inputs(gen, 4, 4, 128, 128, 64, 77)
+
+    def run():
+        la.lean_attention_fwd_cuda(q, k, v, bits, 0.125, 77)
+        la.lean_attention_bwd_cuda(dout, q, k, v, bits, 0.125, 77)
+        torch.cuda.synchronize()
+
+    names = _kernel_names(run, "nsync_lattn_")
+    assert any("nsync_lattn_fwd<64>" in n for n in names), names
+    assert any("nsync_lattn_bwd<64>" in n for n in names), names
+
+
+def test_lean_attention_refusals(gen):
+    q, k, v, dout, bits = _lattn_inputs(gen, 2, 4, 16, 16, 64, 77)
+    fwd, bwd = la.lean_attention_fwd_cuda, la.lean_attention_bwd_cuda
+    with pytest.raises(TypeError, match="bf16"):
+        fwd(q.float(), k.float(), v.float(), bits, 0.125, 77)
+    long_q, long_k, long_v, _, long_bits = _lattn_inputs(gen, 1, 2, 129, 129,
+                                                         64, 77)
+    with pytest.raises(ValueError, match="Tq 129"):
+        fwd(long_q, long_k, long_v, long_bits, 0.125, 77)
+    narrow = [t[..., :24] for t in (q, k, v)]
+    with pytest.raises(ValueError, match="h 24"):
+        fwd(*(t.contiguous() for t in narrow), bits, 0.125, 77)
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    misaligned = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fwd(misaligned, k, v, bits, 0.125, 77)
+    wide = torch.zeros(*q.shape[:-1], 128, device="cuda",
+                       dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="stride"):
+        bwd(wide, q, k, v, bits, 0.125, 77)
+    with pytest.raises(ValueError, match="bits"):
+        fwd(q, k, v, None, 0.125, 77)
+    with pytest.raises(ValueError, match="bits"):
+        fwd(q, k, v, bits[:, :2], 0.125, 77)
+
+
+def test_bf16_train_step_runs_the_lean_attention_kernels(gen, monkeypatch):
+    """A tiny bf16 step at dropout 0.3 on the card: each of its 6 attention
+    sites (2 encoder and 2 decoder self-attentions, 2 cross-attentions)
+    launches the forward and the backward kernel once; its loss and grad
+    norm near the same step with the composed core on the card."""
+    cfg = Config(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
+                 output_dim=7, dropout=0.3, use_amp=True)
+    weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
+    src, trg = _randn(gen, 4, 24, 32), _randn(gen, 4, 24, 7)
+    runs = {}
+    real = la.takes_kernel
+    for kernel in (True, False):
+        monkeypatch.setattr(la, "takes_kernel",
+                            lambda q, k, on=kernel: on and real(q, k))
+        state = init_train_state(cfg, 5, device="cuda", state_dict=weights)
+        kernels.reset_launches()
+        _, loss, norm = make_train_step(cfg)(state, src, trg,
+                                             torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        runs[kernel] = (float(loss), float(norm), dict(kernels.LAUNCHES))
+    assert runs[True][2]["lean_attention_fwd"] == 6
+    assert runs[True][2]["lean_attention_bwd"] == 6
+    assert not {"lean_attention_fwd", "lean_attention_bwd"} & set(runs[False][2])
+    assert runs[True][0] == pytest.approx(runs[False][0], rel=1e-3)
+    assert runs[True][1] == pytest.approx(runs[False][1], rel=1e-2)
