@@ -138,7 +138,7 @@ exits non-zero before its result line.
    peak device memory, and the launch counts include the rematted layers'
    forward kernels launched again in the backward (K3 forward 48, K1 148
    at remat 'all' and 'dots'; 28 and 108 at two decoder layers).
-10. (e) Step (a) with seq2seq._ffn rebound to ops/ffn_bwd.py:ffn_fused, so
+10. (e) Step (a) with seq2seq._ffn rebound to models/layers.py:ffn_fused, so
    that every FFN backward runs K2: K2 = 16 and K1 = 100 launches a step
    (K2 = 0 with the default _ffn again), samples/s, peak memory and busy
    share beside (a), K2's share of the device time (all the wgmma
@@ -2291,11 +2291,11 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
     step with the default _ffn again runs no K2. Then K2's gradients inside
     the model at dropout 0 against the default path and fp32, with a
     planted fault (db1 zeroed) that the check must catch."""
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
     from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 
     default = seq2seq._ffn
-    seq2seq._ffn = ffn_bwd.ffn_fused
+    seq2seq._ffn = layers.ffn_fused
     label = (f"(e) '{cfg.attention_impl}', dropout {cfg.dropout}, FFN "
              f"backward through K2")
     try:
@@ -2320,7 +2320,7 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
         return dh1, db2, torch.zeros_like(db1)
 
     c0 = cfg.replace(dropout=0.0)
-    fused = [(seq2seq, "_ffn", ffn_bwd.ffn_fused)]
+    fused = [(seq2seq, "_ffn", layers.ffn_fused)]
     gradients_in_model(
         torch, weights, src, trg, fp32=(c0.replace(use_amp=False), []),
         baseline=("the default _ffn", c0, []),
@@ -3341,13 +3341,13 @@ def tp_run(torch, cfg, weights, src, trg, mesh, *, fused: bool, steps,
     """dp_run of cfg (seq2seq._ffn through K2 where fused) with the kernel
     launches and 'model' all-reduces of its steps counted from zero; with
     timed, tp_timed_step after them (not counted)."""
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
-    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd, kernels
+    from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
+    from neurosync_trainer_lite_tpu_torch.ops import kernels
     from neurosync_trainer_lite_tpu_torch.parallel import tensor
 
     default = seq2seq._ffn
     if fused:
-        seq2seq._ffn = ffn_bwd.ffn_fused
+        seq2seq._ffn = layers.ffn_fused
     counted = {}
 
     def after(state, step, s, t, gen):
@@ -3390,12 +3390,11 @@ def tp_refs(torch) -> dict:
 def tp_planted(torch, base, weights, src, trg, mesh) -> dict:
     """One step of (t3)'s dropout-0.3 run with each fault planted that the
     first-step gate must catch: every column-parallel backward (the
-    linears' and the lean FFN cores') without its all-reduce over 'model'
+    linears' and the FFN core's) without its all-reduce over 'model'
     (each rank keeps its own partial dx), and every mask drawn at the rank's local width instead of its
     block of the global width's draw."""
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
+    from neurosync_trainer_lite_tpu_torch.models import layers
     from neurosync_trainer_lite_tpu_torch.ops import attention as attn
-    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
     from neurosync_trainer_lite_tpu_torch.parallel import tensor
     from neurosync_trainer_lite_tpu_torch.training import step as step_mod
 
@@ -3403,7 +3402,7 @@ def tp_planted(torch, base, weights, src, trg, mesh) -> dict:
     cfg = base.replace(**kw)
     out = {}
     sound = tensor.reduce_model_
-    callers = (attn, seq2seq, ffn_bwd)   # _linear and the lean FFN cores
+    callers = (attn, layers)   # _linear and the FFN core
 
     def no_backward_reduce(t, mesh, kind):
         return t if kind == "backward" else sound(t, mesh, kind)

@@ -13,16 +13,9 @@ names are the reference checkpoint's state-dict keys, so a reference
   on attention outputs (inside the attention and again in the layer).
 
 Parameters are fp32; with cfg.use_amp the compute runs in bf16 with fp32
-accumulation, LayerNorm in fp32. A Python loop over the layers takes the
-place of lax.scan. In bf16, LayerNorm and the training FFN are autograd
-Functions with JAX's lean residuals and rounding points (_layer_norm_bf16,
-_ffn_lean_core), the LayerNorm a pair of CUDA kernels on the card
-(csrc/layer_norm.cu); fp32 keeps plain autograd, as in JAX.
-
-Remat (cfg.remat, remat_scope, remat_layers, remat_policy): the first
-remat_layers layers of each stack in scope run under
-torch.utils.checkpoint and are recomputed in the backward (_run_layers);
-'dots' keeps the matrix products' outputs and recomputes the rest.
+accumulation, LayerNorm in fp32. The Linear, the LayerNorm, the FFN and
+the layer loop (run_layers, which applies cfg.remat) are models/layers.py's;
+a Python loop over the layers takes the place of lax.scan.
 
 Training: model.train() and a torch.Generator passed to forward turn
 dropout on; the forward draws one seed from the generator and splits it
@@ -36,39 +29,27 @@ and each FFN ffn_dim / tp hidden units (linear1 [F/tp, H], linear2
 [H, F/tp]), as Megatron column- and row-parallel linears
 (ops/attention.py:_linear, parallel/tensor.py); the rest is replicated.
 The parameter names stay the reference's, so a rank's state dict is
-parallel/mesh.py:shard_state_dict of the full one. The lean FFN
-cores sum their second product's fp32 partials over 'model' before the
-bias and the rounding, and their dx partials before dx's rounding.
+parallel/mesh.py:shard_state_dict of the full one.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 from torch import nn
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
 from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.models.layers import (
+    LayerNorm,
+    Linear,
+    ffn,
+    layer_norm,  # noqa: F401 (the JAX module's public name)
+    run_layers,
+)
 from neurosync_trainer_lite_tpu_torch.ops.attention import (
-    _bf16_value,
-    _linear,
-    _mm_f32,
     draw_seed,
     dropout,
-    dropout_keep,
-    dropout_mask_q,
     multi_head_attention,
     split_or_none,
-)
-from neurosync_trainer_lite_tpu_torch.ops.layer_norm_kernel import (
-    EPS as _LN_EPS,
-    layer_norm_bwd,
-    layer_norm_fwd,
 )
 from neurosync_trainer_lite_tpu_torch.ops.rope import rope_embed
 from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
@@ -76,70 +57,12 @@ from neurosync_trainer_lite_tpu_torch.parallel.mesh import (
     param_spec,
     shard_tensor,
 )
-from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
 from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
-
-
-class Linear(nn.Module):
-    """weight [out, in] and bias [out], applied with one rounding (_linear);
-    under a mesh that shards the model, this rank's block of a 'column' or
-    'row' parallel linear."""
-
-    def __init__(self, d_in: int, d_out: int, device, mesh=None,
-                 kind: str | None = None):
-        super().__init__()
-        self.mesh, self.kind = (mesh, kind) if model_sharded(mesh) else (None,
-                                                                    None)
-        self.weight = nn.Parameter(torch.empty(d_out, d_in, device=device))
-        self.bias = nn.Parameter(torch.empty(d_out, device=device))
-
-    def forward(self, x):
-        return _linear(x, self.weight, self.bias, self.mesh, self.kind)
 
 
 def _local(n: int, mesh) -> int:
     """This rank's share of a width sharded over 'model'."""
     return n // mesh.tp if model_sharded(mesh) else n
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, dim: int, device):
-        super().__init__()
-        self.weight = nn.Parameter(torch.empty(dim, device=device))
-        self.bias = nn.Parameter(torch.empty(dim, device=device))
-
-    def forward(self, x):
-        return layer_norm(x, self.weight, self.bias)
-
-
-class _LayerNormBf16(torch.autograd.Function):
-    """LayerNorm of bf16 x with fp32 math that keeps only x and the [..., 1]
-    fp32 mean and rsqrt for the backward, which is the complete analytic
-    derivative (through mean and variance) in fp32: csrc/layer_norm.cu's
-    kernels on the card, their plain version on the CPU
-    (ops/layer_norm_kernel.py)."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias):
-        out, mean, r = layer_norm_fwd(x, weight, bias)
-        ctx.save_for_backward(x, mean, r, weight)
-        return out
-
-    @staticmethod
-    def backward(ctx, dout):
-        x, mean, r, weight = ctx.saved_tensors
-        return layer_norm_bwd(dout, x, mean, r, weight)
-
-
-def layer_norm(x, weight, bias):
-    """LayerNorm over the last dim with fp32 math, rounded once to x.dtype."""
-    if x.dtype == torch.bfloat16:
-        return _LayerNormBf16.apply(x, weight.float(), bias.float())
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = torch.square(xf - mean).mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + _LN_EPS)
-    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 class MultiHeadAttention(nn.Module):
@@ -164,82 +87,12 @@ class MultiHeadAttention(nn.Module):
                                     train=seed is not None, impl=self.impl)
 
 
-class _FfnLeanCore(torch.autograd.Function):
-    """bf16 linear → relu → dropout → linear that keeps only x and the
-    masked activation am for the backward: where kept, am > 0 ⟺ h1 > 0, and
-    dropped elements get a zero cotangent either way, so the mask is not a
-    residual. The weight gradients stay fp32 (JAX's einsums). Under a mesh
-    that shards the model (w1 [F/tp, H], w2 [H, F/tp]) the fp32 partials
-    of am·w2ᵀ and of dx are summed over 'model' before their roundings."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, keep, scale, mesh=None):
-        x2 = x.reshape(-1, x.shape[-1])
-        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-        h1 = (_mm_f32(x2, w1c.t()) + b1.float()).to(x.dtype)
-        am = torch.relu(h1)
-        if keep is not None:
-            am = torch.where(keep.reshape(am.shape), am * scale, 0)
-        y = reduce_model_(_mm_f32(am, w2c.t()), mesh, "forward")
-        y = (y + b2.float()).to(x.dtype)
-        ctx.save_for_backward(x2, am, w1c, w2c)
-        ctx.scale, ctx.shape, ctx.mesh = scale, x.shape, mesh
-        return y.reshape(*x.shape[:-1], w2.shape[0])
-
-    @staticmethod
-    def backward(ctx, dy):
-        x2, am, w1c, w2c = ctx.saved_tensors
-        dy2 = dy.reshape(-1, dy.shape[-1])
-        db2 = dy2.float().sum(0)
-        dw2 = _mm_f32(dy2.t(), am)
-        dam = _mm_f32(dy2, w2c).to(dy.dtype)
-        dh1 = torch.where(am > 0, dam * ctx.scale, 0)
-        db1 = dh1.float().sum(0)
-        dw1 = _mm_f32(dh1.t(), x2)
-        dx = reduce_model_(_mm_f32(dh1, w1c), ctx.mesh, "backward")
-        return (dx.to(dy.dtype).reshape(ctx.shape), dw1, db1, dw2, db2, None,
-                None, None)
-
-
-def lean_ffn_mask(module, x, seed):
-    """(keep, scale) for a lean FFN core, or None where the plain composition
-    runs: the lean cores take bf16 training only, and rate ≈ 1.0 (which drops
-    everything) goes plain. keep is None at rate 0; otherwise it is the plain
-    path's draw (same seed, shape and threshold), so every path drops the
-    same elements; under tensor parallelism this rank's columns of the
-    global hidden width's draw. scale is the unrounded 256 / (256 - q)."""
-    if x.dtype != torch.bfloat16 or seed is None:
-        return None
-    q = dropout_mask_q(module.rate)
-    if q >= 256:
-        return None
-    if q <= 0:
-        return None, 1.0
-    keep = dropout_keep(seed, (*x.shape[:-1], module.linear1.weight.shape[0]),
-                        q, x.device, split_dim=-1)
-    return keep, 256.0 / (256 - q)
-
-
-def ffn_plain(module, x, seed):
-    """linear → relu → dropout → linear, plain autograd."""
-    h = torch.relu(module.linear1(x))
-    return module.linear2(dropout(h, module.rate, seed, seed is not None,
-                                  split_dim=-1))
-
-
 def _ffn(module, x, seed=None):
-    """ReLU FFN with dropout after the activation (JAX models/seq2seq._ffn).
-    bf16 training takes the lean core, which scales by the bf16-rounded
-    scale, as JAX's. FeedForward.forward calls it through this module's
-    global, so a caller may route the FFN elsewhere by rebinding
-    seq2seq._ffn (ops/ffn_bwd.py:ffn_fused takes kernel K2)."""
-    lean = lean_ffn_mask(module, x, seed)
-    if lean is None:
-        return ffn_plain(module, x, seed)
-    keep, scale = lean
-    return _FfnLeanCore.apply(x, module.linear1.weight, module.linear1.bias,
-                              module.linear2.weight, module.linear2.bias, keep,
-                              _bf16_value(scale), module.linear2.mesh)
+    """ReLU FFN with dropout after the activation (JAX models/seq2seq._ffn):
+    models/layers.py:ffn. FeedForward.forward calls it through this
+    module's global, so a caller may route the FFN elsewhere by rebinding
+    seq2seq._ffn (models/layers.py:ffn_fused takes kernel K2)."""
+    return ffn(x, module.linear1, module.linear2, module.rate, seed)
 
 
 class FeedForward(nn.Module):
@@ -306,52 +159,6 @@ class DecoderLayer(nn.Module):
         return self.norm3(x + dropout(f, self.rate, s_d3, train))
 
 
-#: the products the port's matmuls reach at the dispatcher (torch.mm with an
-#: fp32 output in _mm_f32, torch.matmul in _matmul_round_once and the fp32
-#: @): what jax.checkpoint_policies.checkpoint_dots saves
-_DOT_OPS = frozenset({torch.ops.aten.mm, torch.ops.aten.bmm,
-                      torch.ops.aten.addmm, torch.ops.aten.baddbmm,
-                      torch.ops.aten.matmul})
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
-            else CheckpointPolicy.PREFER_RECOMPUTE)
-
-
-def _remat_count(cfg: Config, scope: str, n_layers: int) -> int:
-    """How many leading layers of the `scope` stack are rematted: JAX's
-    _maybe_remat and _scan_layers (all of them at remat_layers -1 or
-    >= n_layers, none out of scope)."""
-    if not cfg.remat or cfg.remat_scope not in ("all", scope):
-        return 0
-    k = cfg.remat_layers
-    return n_layers if k < 0 or k >= n_layers else k
-
-
-def _run_layers(layers, x, seeds, cfg: Config, scope: str, *memory):
-    """Apply the layers in order; the first _remat_count of them keep only
-    their inputs and are recomputed in the backward (checkpoint per layer,
-    non-reentrant, so the autograd Functions inside work unchanged and the
-    recompute redraws every dropout mask from its per-site seed). Where no
-    backward can follow (grad disabled, as in serving) nothing changes, as
-    in JAX. cfg.unroll_residents is semantics only here: JAX unrolls the
-    resident layers so that lax.scan does not stack their residuals; an
-    eager Python loop stacks nothing."""
-    n_remat = (_remat_count(cfg, scope, len(layers))
-               if torch.is_grad_enabled() else 0)
-    kw = {}
-    if cfg.remat_policy == "dots":   # any other policy: full remat, as JAX
-        kw["context_fn"] = functools.partial(
-            create_selective_checkpoint_contexts, _dots_policy)
-    for i, (layer, s) in enumerate(zip(layers, seeds)):
-        if i < n_remat:
-            x = checkpoint(layer, x, *memory, s, use_reentrant=False, **kw)
-        else:
-            x = layer(x, *memory, s)
-    return x
-
-
 class Encoder(nn.Module):
     def __init__(self, cfg: Config, device, mesh=None):
         super().__init__()
@@ -364,8 +171,8 @@ class Encoder(nn.Module):
     def forward(self, x, seed=None):
         x = rope_embed(self.embedding(x))
         seeds = split_or_none(seed, len(self.transformer_encoder))
-        x = _run_layers(self.transformer_encoder, x, seeds, self.cfg,
-                        "encoder")
+        x = run_layers(self.transformer_encoder, x, seeds, self.cfg,
+                       "encoder")
         return self.layer_norm(x)
 
 
@@ -381,8 +188,8 @@ class Decoder(nn.Module):
     def forward(self, encoder_outputs, seed=None):
         x = rope_embed(encoder_outputs)
         seeds = split_or_none(seed, len(self.transformer_decoder))
-        x = _run_layers(self.transformer_decoder, x, seeds, self.cfg,
-                        "decoder", encoder_outputs)
+        x = run_layers(self.transformer_decoder, x, seeds, self.cfg,
+                       "decoder", encoder_outputs)
         return self.fc_output(self.layer_norm(x)).float()
 
 

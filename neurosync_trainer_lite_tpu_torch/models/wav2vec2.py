@@ -41,11 +41,11 @@ layer's into (attention, attention output, FFN activation, FFN output);
 the attention's into (weights, unused) as multi_head_attention splits it.
 
 Precision: with cfg.use_amp the frontend's convs, the positional conv, the
-products and the FFN run in bf16 with fp32 accumulation, the LayerNorms
-through the bf16 kernel pair (csrc/layer_norm.cu, widths hidden and
-conv_dim[-1]), and bf16 training takes the GELU FFN core (_FfnGeluCore);
-fp32 is plain autograd. The 24 layers go through models/seq2seq.py's
-_run_layers at scope 'encoder', so cfg.remat applies.
+products and the FFN run in bf16 with fp32 accumulation. The Linear, the
+LayerNorm (bf16: the kernel pair of csrc/layer_norm.cu, widths hidden and
+conv_dim[-1]), the FFN (bf16 training: its one core, with the GELU) and the
+layer loop are models/layers.py's; fp32 is plain autograd. The 24 layers go
+through run_layers at scope 'encoder', so cfg.remat applies.
 
 Parameter names are the source checkpoint's where the port's modules allow
 (feature_extractor.conv_layers.{i}.conv, .layer_norm;
@@ -68,18 +68,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from neurosync_trainer_lite_tpu_torch.config import Config, check_tp_split
-from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
+from neurosync_trainer_lite_tpu_torch.models.layers import (
     LayerNorm,
     Linear,
-    _run_layers,
+    ffn,
+    run_layers,
 )
 from neurosync_trainer_lite_tpu_torch.ops.attention import (
-    _drop,
-    _mm_f32,
     draw_seed,
     dropout,
-    dropout_keep,
-    dropout_mask_q,
     multi_head_attention,
     split_or_none,
 )
@@ -107,12 +104,6 @@ def normalize_waveform(x: torch.Tensor) -> torch.Tensor:
     mean = x.mean(-1, keepdim=True)
     var = torch.square(x - mean).mean(-1, keepdim=True)
     return (x - mean) * torch.rsqrt(var + NORM_EPS)
-
-
-def gelu_grad(h: torch.Tensor) -> torch.Tensor:
-    """d GELU(h) / dh of the exact GELU, in h's type: Φ(h) + h·φ(h)."""
-    return (0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
-            + h * torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi))
 
 
 class Conv(nn.Module):
@@ -251,51 +242,6 @@ class Attention(nn.Module):
             impl=self.impl, out_dropout=False)
 
 
-class _FfnGeluCore(torch.autograd.Function):
-    """bf16 linear → exact GELU → dropout → linear that keeps x and the bf16
-    pre-activation h1 for the backward, which takes GELU's derivative from
-    h1 and redraws the dropout mask from its seed. The weight gradients
-    stay fp32 (as _FfnLeanCore's)."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, seed, q):
-        x2 = x.reshape(-1, x.shape[-1])
-        w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-        h1 = (_mm_f32(x2, w1c.t()) + b1.float()).to(x.dtype)
-        a = _FfnGeluCore.dropped(F.gelu(h1), seed, q, x.shape)
-        y = (_mm_f32(a, w2c.t()) + b2.float()).to(x.dtype)
-        ctx.save_for_backward(x2, h1, w1c, w2c)
-        ctx.seed, ctx.q, ctx.shape = seed, q, x.shape
-        return y.reshape(*x.shape[:-1], w2.shape[0])
-
-    @staticmethod
-    def keep(seed, q, shape, width, device):
-        return dropout_keep(seed, (*shape[:-1], width), q, device,
-                            split_dim=-1).reshape(-1, width)
-
-    @staticmethod
-    def dropped(a, seed, q, shape):
-        if q <= 0:
-            return a
-        return _drop(a, _FfnGeluCore.keep(seed, q, shape, a.shape[-1],
-                                          a.device), q)
-
-    @staticmethod
-    def backward(ctx, dy):
-        x2, h1, w1c, w2c = ctx.saved_tensors
-        dy2 = dy.reshape(-1, dy.shape[-1])
-        a = _FfnGeluCore.dropped(F.gelu(h1), ctx.seed, ctx.q, ctx.shape)
-        db2 = dy2.float().sum(0)
-        dw2 = _mm_f32(dy2.t(), a)
-        da = _mm_f32(dy2, w2c).to(dy.dtype)
-        da = _FfnGeluCore.dropped(da, ctx.seed, ctx.q, ctx.shape)
-        dh1 = (da.float() * gelu_grad(h1.float())).to(dy.dtype)
-        db1 = dh1.float().sum(0)
-        dw1 = _mm_f32(dh1.t(), x2)
-        dx = _mm_f32(dh1, w1c).to(dy.dtype)
-        return (dx.reshape(ctx.shape), dw1, db1, dw2, db2, None, None)
-
-
 class FeedForward(nn.Module):
     def __init__(self, hidden: int, ffn_dim: int, device, rate: float):
         super().__init__()
@@ -304,18 +250,8 @@ class FeedForward(nn.Module):
         self.output_dense = Linear(ffn_dim, hidden, device)
 
     def forward(self, x, seed=None):
-        """bf16 training takes the GELU core; everything else (fp32, eval,
-        a rate that drops everything) the plain composition. Both draw the
-        same mask from the same seed."""
-        q = dropout_mask_q(self.rate) if seed is not None else 0
-        if x.dtype == torch.bfloat16 and seed is not None and q < 256:
-            return _FfnGeluCore.apply(
-                x, self.intermediate_dense.weight,
-                self.intermediate_dense.bias, self.output_dense.weight,
-                self.output_dense.bias, seed, q)
-        h = F.gelu(self.intermediate_dense(x))
-        return self.output_dense(dropout(h, self.rate, seed, seed is not None,
-                                         split_dim=-1))
+        return ffn(x, self.intermediate_dense, self.output_dense, self.rate,
+                   seed, "gelu")
 
 
 class EncoderLayer(nn.Module):
@@ -389,8 +325,8 @@ class Wav2Vec2(nn.Module):
             x = x + pos_conv(self.encoder.pos_conv_embed, x)
         x = dropout(x, cfg.dropout, s_pos, seed is not None)
         layers = self.encoder.layers
-        x = _run_layers(layers, x, split_or_none(s_layers, len(layers)), cfg,
-                        "encoder")
+        x = run_layers(layers, x, split_or_none(s_layers, len(layers)), cfg,
+                       "encoder")
         return self.fc_output(self.encoder.layer_norm(x)).float()
 
 

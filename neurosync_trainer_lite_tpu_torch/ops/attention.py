@@ -246,6 +246,13 @@ def dropout(x: torch.Tensor, rate: float, seed, train: bool,
 # the bf16 softmax and the lean attention core
 
 
+def _softmax_bwd_bf16(w, dw):
+    """ds = w·(dw − Σ dw·w) of bf16 softmax weights w and their cotangent
+    dw, in fp32, rounded to bf16."""
+    wf, dwf = w.float(), dw.float()
+    return (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
+
+
 class _SoftmaxResidualBf16(torch.autograd.Function):
     """softmax of bf16 logits with fp32 statistics, bf16 out, and a bf16
     residual; the backward ds = w·(dw − Σ dw·w) runs in fp32."""
@@ -259,8 +266,14 @@ class _SoftmaxResidualBf16(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dw):
         (w,) = ctx.saved_tensors
-        wf, dwf = w.float(), dw.float()
-        return (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
+        return _softmax_bwd_bf16(w, dw)
+
+
+def _weights_bf16(q, k, scale: float):
+    """The bf16 attention weights: q·kᵀ rounded once to bf16, times the
+    bf16-rounded scale, softmaxed in fp32 and rounded to bf16."""
+    s = _matmul_round_once(q, k.transpose(-1, -2)) * _bf16_value(scale)
+    return _SoftmaxResidualBf16.apply(s)
 
 
 def draw_bits(seed, q: torch.Tensor, k: torch.Tensor, qthresh: int):
@@ -274,8 +287,7 @@ def draw_bits(seed, q: torch.Tensor, k: torch.Tensor, qthresh: int):
 
 def _plain_weights(q, k, bits, scale, qthresh):
     """The forward chain up to the dropped weights: (w, wd, keep)."""
-    s = _matmul_round_once(q, k.transpose(-1, -2)) * _bf16_value(scale)
-    w = torch.softmax(s.float(), dim=-1).to(torch.bfloat16)
+    w = _weights_bf16(q, k, scale)
     if qthresh == 0:
         return w, w, None
     keep = bits >= qthresh
@@ -299,9 +311,7 @@ def lean_attention_plain_bwd(dout, q, k, v, bits, scale: float,
     dw = _matmul_round_once(dout, v.transpose(-1, -2))
     if keep is not None:
         dw = _drop(dw, keep, qthresh)
-    wf, dwf = w.float(), dw.float()
-    ds = (wf * (dwf - (dwf * wf).sum(-1, keepdim=True))).to(torch.bfloat16)
-    ds = ds * _bf16_value(scale)
+    ds = _softmax_bwd_bf16(w, dw) * _bf16_value(scale)
     dq = _matmul_round_once(ds, k)
     dk = _matmul_round_once(ds.transpose(-1, -2), q)
     return dq, dk, dv
@@ -357,18 +367,16 @@ def sdpa(q, k, v, *, dropout_rate: float = 0.0, seed=None, train: bool = False,
     if use_flash and fa.supports(kv_len, dropout_rate if train else 0.0, seed,
                                  head_dim=q.shape[-1]):
         return fa.flash_attention(q, k, v, scale)
-    kt = k.transpose(-1, -2)
     if v.dtype == torch.bfloat16:
         if train:
             drop = dropout_rate > 0.0 and seed is not None
             qthresh = dropout_mask_q(dropout_rate) if drop else 0
             if qthresh < 256:  # rate ≈ 1.0 takes the composed path's zeros
                 return _SdpaLeanCore.apply(q, k, v, seed, scale, qthresh)
-        scores = _matmul_round_once(q, kt) * _bf16_value(scale)
-        weights = _SoftmaxResidualBf16.apply(scores)
-        weights = dropout(weights, dropout_rate, seed, train, split_dim=1)
+        weights = dropout(_weights_bf16(q, k, scale), dropout_rate, seed,
+                          train, split_dim=1)
         return _matmul_round_once(weights, v)
-    scores = torch.matmul(q, kt) * scale
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
     weights = torch.softmax(scores.float(), dim=-1)
     weights = dropout(weights, dropout_rate, seed, train, split_dim=1)
     return torch.matmul(weights.to(v.dtype), v)
@@ -379,7 +387,7 @@ def multi_head_attention(p, query, key, value, *, num_heads: int,
                          train: bool = False, use_rope: bool = True,
                          impl: str = "auto", out_dropout: bool = True):
     """p has the linears q_linear, k_linear, v_linear and out_linear
-    (models/seq2seq.py:Linear, called on [..., in]).
+    (models/layers.py:Linear, called on [..., in]).
 
     query [B, Tq, H], key/value [B, Tk, H] → [B, Tq, H]. Under tensor
     parallelism q, k and v return this rank's num_heads heads (of width

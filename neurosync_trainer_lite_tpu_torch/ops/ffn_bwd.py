@@ -1,8 +1,9 @@
-"""K2: the fused FFN backward (dh1, db2, db1) and the FFN core that uses it.
+"""K2: the fused FFN backward (dh1, db2, db1).
 
-Port of neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py (ffn_bwd_dh1,
-ffn_lean_core_fused, ffn_fused). The kernel is csrc/ffn_bwd.cu (its head
-note says what bounds it on the H100 and how its design answers that):
+Port of neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py's ffn_bwd_dh1; its
+ffn_lean_core_fused and ffn_fused are models/layers.py's FFN core with k2
+and ffn_fused. The kernel is csrc/ffn_bwd.cu (its head note says what
+bounds it on the H100 and how its design answers that):
 
     dh1 = where(am > 0, (dy · W) · scale, 0)   fp32, rounded once to dy's type
     db2 = Σ_rows dy                            fp32
@@ -16,28 +17,23 @@ Pallas body does with its static Python float. CPU tensors take the plain
 version; CUDA tensors launch the kernel (bf16 only) or raise.
 
 As in the JAX package, no configuration reaches K2: the bf16 training step
-goes through it where a caller routes the model's FFN through ffn_fused,
-
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
-    seq2seq._ffn = ffn_bwd.ffn_fused
-
-as tools/tpu_probe.py does for the JAX model. The Pallas tile (FFN_BWD_BM)
-and its bias-partial ablation (FFN_BWD_WITH_BIAS) are TPU tuning knobs and
-are ported as semantics only: the kernel always writes the partials.
+goes through it where a caller routes the model's FFN through
+models/layers.py's ffn_fused, by rebinding models/seq2seq.py's _ffn to it
+(seq2seq._ffn = layers.ffn_fused), as tools/tpu_probe.py does for the JAX
+model. Under tensor parallelism K2
+needs no change: dh1 = dy·W2 takes the replicated dy and this rank's W2
+[H, F/tp], and db2 = Σdy is the same on every 'model' rank, as a
+replicated bias's gradient must be. The Pallas tile (FFN_BWD_BM) and its
+bias-partial ablation (FFN_BWD_WITH_BIAS) are TPU tuning knobs and are
+ported as semantics only: the kernel always writes the partials.
 """
 
 from __future__ import annotations
 
 import torch
 
-from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
-    _FfnLeanCore,
-    ffn_plain,
-    lean_ffn_mask,
-)
 from neurosync_trainer_lite_tpu_torch.ops import kernels
-from neurosync_trainer_lite_tpu_torch.ops.attention import _bf16_value, _mm_f32
-from neurosync_trainer_lite_tpu_torch.parallel.tensor import reduce_model_
+from neurosync_trainer_lite_tpu_torch.ops.attention import _mm_f32
 
 #: rows of csrc/ffn_bwd.cu's output tile, so the partial sums' row count is
 #: ceil(M / ROW_TILE); the kernel refuses any other
@@ -96,46 +92,3 @@ def ffn_bwd_dh1(dy, w2, am, *, scale: float):
     if dy.device.type == "cpu":
         return ffn_bwd_dh1_plain(dy, w2, am, scale=scale)
     return ffn_bwd_dh1_cuda(dy, w2, am, scale=scale)
-
-
-class _FfnLeanCoreFused(torch.autograd.Function):
-    """models/seq2seq._FfnLeanCore with K2 in its backward. The forward is
-    _FfnLeanCore's, with am scaled by the bf16-rounded scale: bit-identical.
-    The backward takes (dh1, db2, db1) from ffn_bwd_dh1 at the fp32 scale;
-    dw2, dw1 and dx stay products with fp32 outputs (_mm_f32), as JAX keeps
-    them XLA einsums. Under tensor parallelism K2 needs no change: dh1 =
-    dy·W2 takes the replicated dy and this rank's W2 [H, F/tp], and db2 =
-    Σdy is the same on every 'model' rank, as a replicated bias's gradient
-    must be; dx's fp32 partial is summed over 'model' before its rounding,
-    as in _FfnLeanCore."""
-
-    @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, keep, scale, mesh=None):
-        y = _FfnLeanCore.forward(ctx, x, w1, b1, w2, b2, keep,
-                                 _bf16_value(scale), mesh)
-        ctx.scale = scale
-        return y
-
-    @staticmethod
-    def backward(ctx, dy):
-        x2, am, w1c, w2c = ctx.saved_tensors
-        dy2 = dy.reshape(-1, dy.shape[-1])
-        dh1, db2, db1 = ffn_bwd_dh1(dy2, w2c, am, scale=ctx.scale)
-        dw2 = _mm_f32(dy2.t(), am)
-        dw1 = _mm_f32(dh1.t(), x2)
-        dx = reduce_model_(_mm_f32(dh1, w1c), ctx.mesh, "backward")
-        return (dx.to(dy.dtype).reshape(ctx.shape), dw1, db1, dw2, db2, None,
-                None, None)
-
-
-def ffn_fused(module, x, seed=None):
-    """models/seq2seq._ffn with the K2 core on the bf16 training path: the
-    same gates and the same shared mask draw (lean_ffn_mask), so a step
-    routed here drops the elements the default step drops."""
-    lean = lean_ffn_mask(module, x, seed)
-    if lean is None:
-        return ffn_plain(module, x, seed)
-    keep, scale = lean
-    return _FfnLeanCoreFused.apply(
-        x, module.linear1.weight, module.linear1.bias, module.linear2.weight,
-        module.linear2.bias, keep, scale, module.linear2.mesh)

@@ -1,6 +1,6 @@
 """The bf16 LayerNorm as a pair of CUDA kernels, and its plain version.
 
-The model's bf16 LayerNorm (models/seq2seq.py:_LayerNormBf16, the port of
+The model's bf16 LayerNorm (models/layers.py:_LayerNormBf16, the port of
 the JAX package's _layer_norm_bf16) keeps only x and the per-row fp32 mean
 and rsqrt for its backward. The kernels are csrc/layer_norm.cu (its head
 note says what bounds them on the H100 and how their design answers that).

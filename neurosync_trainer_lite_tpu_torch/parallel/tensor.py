@@ -21,8 +21,8 @@ reduction is one a column-parallel linear (no shared "f" operator on the
 common input of q, k and v, which would round each linear's dx to bf16
 before summing them in fp32, where tp = 1 sums them in bf16 as autograd
 accumulates).
-models/seq2seq.py's lean FFN cores put the same two sums inside their own
-Functions (reduce_model_).
+models/layers.py's FFN core puts the same two sums inside its own
+Function (reduce_model_).
 
 Counts: COLLECTIVES counts the 'model' all-reduces by kind, as
 ops/kernels.LAUNCHES counts launches: 'forward' (one a row-parallel

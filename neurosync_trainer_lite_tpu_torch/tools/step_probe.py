@@ -11,7 +11,7 @@ forward the same way. The kernel launches of the warm and timed steps go
 to stderr as one line, `launches {"steps": N, "launches": {...}}`.
 
 --patch ffn-bwd-pallas routes every FFN backward through K2 (the fused FFN
-backward, ops/ffn_bwd.py:ffn_fused, csrc/ffn_bwd.cu) by rebinding
+backward, models/layers.py:ffn_fused, csrc/ffn_bwd.cu) by rebinding
 models/seq2seq.py's _ffn, as the JAX probe rebinds its model's. The JAX
 probe's other patches ablate or prototype pieces of the XLA program, and
 its --rng, --unroll, --cache, --ffn-bm, --ffn-bias and --unroll-residents
@@ -53,7 +53,7 @@ def main(argv=None) -> int:
     p.add_argument("--fwd-only", action="store_true")
     p.add_argument("--patch", default=None, choices=("ffn-bwd-pallas",),
                    help="ffn-bwd-pallas: every FFN backward through K2 "
-                        "(ops/ffn_bwd.py:ffn_fused)")
+                        "(models/layers.py:ffn_fused)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card)")
     p.add_argument("--tiny", action="store_true",
@@ -69,8 +69,8 @@ def main(argv=None) -> int:
     from neurosync_trainer_lite_tpu_torch.utils.device import resolve_device
 
     if args.patch == "ffn-bwd-pallas":
-        from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
-        seq2seq._ffn = ffn_bwd.ffn_fused
+        from neurosync_trainer_lite_tpu_torch.models import layers
+        seq2seq._ffn = layers.ffn_fused
 
     device = resolve_device(args.device)
     cfg = (tiny_config if args.tiny else full_config)(

@@ -14,7 +14,7 @@ feature encoder) get no Adam state and no share of the clip's norm.
 
 PyTorch runs eagerly: the step is a Python function over a TrainState that
 it updates in place (the JAX step donates its state). Remat comes with the
-model (cfg.remat and its knobs, models/seq2seq.py).
+model (cfg.remat and its knobs, models/layers.py:run_layers).
 
 Data parallelism (a mesh, parallel/mesh.py): each rank runs the forward and
 backward on its rows of the batch (batch_rows' layout), micro-batch by

@@ -25,7 +25,7 @@ from neurosync_trainer_lite_tpu_torch.models.seq2seq import (
     MultiHeadAttention,
     init_seq2seq,
 )
-from neurosync_trainer_lite_tpu_torch.models import seq2seq
+from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
 from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 from neurosync_trainer_lite_tpu_torch.ops import flash_attention as fa
 from neurosync_trainer_lite_tpu_torch.ops import fused_attention as fua
@@ -563,7 +563,7 @@ def test_ffn_fused_step_on_the_card_runs_k2(gen, monkeypatch):
     weights = init_seq2seq(cfg, gen, device="cuda").state_dict()
     src, trg = _randn(gen, 4, 24, 32), _randn(gen, 4, 24, 7)
     runs = {}
-    for name, fn in (("default", seq2seq._ffn), ("fused", ffn_bwd.ffn_fused)):
+    for name, fn in (("default", seq2seq._ffn), ("fused", layers.ffn_fused)):
         monkeypatch.setattr(seq2seq, "_ffn", fn)
         state = init_train_state(cfg, 5, device="cuda", state_dict=weights)
         kernels.reset_launches()

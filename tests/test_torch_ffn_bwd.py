@@ -2,11 +2,13 @@
 
 The port's plain ffn_bwd_dh1 (what CPU tensors run, and what the CUDA
 kernel is held against on the card) against the Pallas kernel in interpret
-mode at the JAX test's shapes; the fused core's gradients against JAX's
-ffn_lean_core_fused and against the port's own lean core; a bf16 train step
-routed through ffn_fused against the JAX step routed through its ffn_fused.
-Inputs are seeded numpy arrays handed to both packages. JAX's w2 is [F, H];
-the port's linear2.weight is its transpose.
+mode at the JAX test's shapes; the FFN core with K2 (models/layers.py)
+against JAX's ffn_lean_core_fused and against the same core without K2; a
+bf16 train step routed through ffn_fused against the JAX step routed
+through its ffn_fused. Inputs are seeded numpy arrays handed to both
+packages; the port's core draws its mask from a seed, and JAX gets that
+mask (dropout_keep). JAX's w2 is [F, H]; the port's linear2.weight is its
+transpose.
 """
 
 import numpy as np
@@ -18,8 +20,10 @@ import jax.numpy as jnp
 
 from neurosync_trainer_lite_tpu.models import seq2seq as jmodel
 from neurosync_trainer_lite_tpu.ops import ffn_bwd_pallas as jffn
+from neurosync_trainer_lite_tpu_torch.models import layers
 from neurosync_trainer_lite_tpu_torch.models import seq2seq as tmodel
 from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+from neurosync_trainer_lite_tpu_torch.ops.attention import _bf16_value, dropout_keep
 
 BF16_ULP = 2.0 ** -7       # one bf16 ulp is at most 2^-7 of the value
 Q77 = 256.0 / (256 - 77)   # dropout 0.3's inverted scale, unrounded
@@ -88,23 +92,24 @@ def test_scale_one_and_full_mask_is_the_rounded_product():
 
 
 def _core_inputs(seed, B=2, T=16, H=32, F=128):
+    """Seeded inputs, the core's mask seed and its keep mask at dropout 0.3
+    (q 77), as the core draws it."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, T, H)).astype(np.float32)
     w1 = (rng.standard_normal((H, F)) * 0.05).astype(np.float32)  # JAX [in, out]
     b1 = (rng.standard_normal(F) * 0.01).astype(np.float32)
     w2 = (rng.standard_normal((F, H)) * 0.05).astype(np.float32)
     b2 = (rng.standard_normal(H) * 0.01).astype(np.float32)
-    keep = rng.integers(0, 256, (B, T, F), dtype=np.uint8) >= 77
+    keep = dropout_keep(seed, (B, T, F), 77, "cpu", split_dim=-1).numpy()
     dy = rng.standard_normal((B, T, H)).astype(np.float32)
-    return x, w1, b1, w2, b2, keep, dy
+    return x, w1, b1, w2, b2, seed, keep, dy
 
 
-def _port_grads(fn, x, w1, b1, w2, b2, keep, scale, dy):
+def _port_grads(k2, x, w1, b1, w2, b2, seed, q, dy, activation="relu"):
     tx = torch.from_numpy(x).bfloat16().requires_grad_(True)
     params = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(True)
               for a in (w1.T, b1, w2.T, b2)]
-    tkeep = None if keep is None else torch.from_numpy(keep)
-    y = fn.apply(tx, *params, tkeep, scale)
+    y = layers._FfnCore.apply(tx, *params, seed, q, activation, None, k2)
     y.backward(torch.from_numpy(dy).bfloat16())
     w1g, b1g, w2g, b2g = (p.grad for p in params)
     return y, (tx.grad, w1g.T, b1g, w2g.T, b2g)
@@ -112,15 +117,15 @@ def _port_grads(fn, x, w1, b1, w2, b2, keep, scale, dy):
 
 @pytest.mark.parametrize("dropout", [True, False])
 def test_fused_core_matches_jax(dropout):
-    """_FfnLeanCoreFused against ffn_lean_core_fused on the same bf16 inputs
-    and mask, at dropout 0.3's fp32 scale and at dropout 0 (the port passes
-    no mask, JAX a mask of ones): forward and gradients within one bf16 ulp
-    plus 1e-5 of the largest."""
-    x, w1, b1, w2, b2, keep, dy = _core_inputs(7)
+    """The FFN core with K2 against ffn_lean_core_fused on the same bf16
+    inputs and mask, at dropout 0.3's fp32 scale and at dropout 0 (the port
+    draws no mask, JAX takes a mask of ones): forward and gradients within
+    one bf16 ulp plus 1e-5 of the largest."""
+    x, w1, b1, w2, b2, seed, keep, dy = _core_inputs(7)
     scale = Q77 if dropout else 1.0
     jkeep = keep if dropout else np.ones_like(keep)
-    y, grads = _port_grads(ffn_bwd._FfnLeanCoreFused, x, w1, b1, w2, b2,
-                           keep if dropout else None, scale, dy)
+    y, grads = _port_grads(True, x, w1, b1, w2, b2, seed,
+                           77 if dropout else 0, dy)
     jargs = [jnp.asarray(x, jnp.bfloat16)] + [jnp.asarray(a) for a in
                                               (w1, b1, w2, b2)]
     jy, vjp = jax.vjp(lambda *a: jffn.ffn_lean_core_fused(
@@ -132,25 +137,42 @@ def test_fused_core_matches_jax(dropout):
         _within_one_ulp(ours, theirs, name)
 
 
-def test_fused_core_forward_is_the_lean_core_and_grads_agree():
-    """At dropout 0.3 the fused forward is bitwise the lean core's (both
+def test_fused_core_forward_is_the_lean_core_and_grads_agree(monkeypatch):
+    """At dropout 0.3 the forward with K2 is bitwise the one without (both
     scale am by the bf16-rounded scale); the gradients differ only in where
     the epilogue rounds (after the fp32 scale, not before it) and in db1's
     fp32 source: the JAX test's bf16 bound, 2e-2."""
-    x, w1, b1, w2, b2, keep, dy = _core_inputs(8)
-    y_f, g_f = _port_grads(ffn_bwd._FfnLeanCoreFused, x, w1, b1, w2, b2,
-                           keep, Q77, dy)
-    y_l, g_l = _port_grads(tmodel._FfnLeanCore, x, w1, b1, w2, b2, keep,
-                           tmodel._bf16_value(Q77), dy)
+    x, w1, b1, w2, b2, seed, _, dy = _core_inputs(8)
+    calls = []
+    real = ffn_bwd.ffn_bwd_dh1
+
+    def spy(dy2, w2c, am, *, scale):
+        calls.append((scale, am))
+        return real(dy2, w2c, am, scale=scale)
+
+    monkeypatch.setattr(ffn_bwd, "ffn_bwd_dh1", spy)
+    y_f, g_f = _port_grads(True, x, w1, b1, w2, b2, seed, 77, dy)
+    y_l, g_l = _port_grads(False, x, w1, b1, w2, b2, seed, 77, dy)
     assert torch.equal(y_f, y_l)
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), g_f, g_l):
         np.testing.assert_allclose(_f32(a), _f32(b), rtol=2e-2, atol=2e-2,
                                    err_msg=name)
     # the fp32 scale reaches the epilogue: with the bf16-rounded one the
     # kernel's dh1 (hence db1) moves by 3.4e-4 relative
-    _, g_r = _port_grads(ffn_bwd._FfnLeanCoreFused, x, w1, b1, w2, b2, keep,
-                         tmodel._bf16_value(Q77), dy)
-    assert not torch.equal(g_r[2], g_f[2])
+    (scale, am), = calls
+    assert scale == Q77 != _bf16_value(Q77)
+    dy2 = torch.from_numpy(dy).bfloat16().reshape(-1, dy.shape[-1])
+    w2c = torch.from_numpy(np.ascontiguousarray(w2.T)).bfloat16()
+    rounded = real(dy2, w2c, am, scale=_bf16_value(Q77))
+    assert torch.equal(real(dy2, w2c, am, scale=Q77)[2], g_f[2])
+    assert not torch.equal(rounded[2], g_f[2])
+
+
+def test_k2_takes_only_the_relu():
+    """K2's epilogue is the ReLU's derivative: the GELU core refuses it."""
+    x, w1, b1, w2, b2, seed, _, dy = _core_inputs(9)
+    with pytest.raises(ValueError, match="K2"):
+        _port_grads(True, x, w1, b1, w2, b2, seed, 26, dy, "gelu")
 
 
 def _ffn_module(rate, seed=3):
@@ -171,16 +193,16 @@ def test_ffn_fused_takes_the_default_paths_gates_and_mask(rate, monkeypatch):
     m = _ffn_module(rate)
     x = torch.randn(2, 8, 32, generator=torch.Generator().manual_seed(1))
     xb = x.bfloat16()
-    assert torch.equal(ffn_bwd.ffn_fused(m, xb, 11), m(xb, 11))
-    assert torch.equal(ffn_bwd.ffn_fused(m, x, 11), m(x, 11))      # fp32
-    assert torch.equal(ffn_bwd.ffn_fused(m, xb), m(xb))            # eval
-    monkeypatch.setattr(tmodel, "_ffn", ffn_bwd.ffn_fused)
+    assert torch.equal(layers.ffn_fused(m, xb, 11), m(xb, 11))
+    assert torch.equal(layers.ffn_fused(m, x, 11), m(x, 11))      # fp32
+    assert torch.equal(layers.ffn_fused(m, xb), m(xb))            # eval
+    monkeypatch.setattr(tmodel, "_ffn", layers.ffn_fused)
     calls = []
-    real = ffn_bwd._FfnLeanCoreFused.apply
-    monkeypatch.setattr(ffn_bwd._FfnLeanCoreFused, "apply",
-                        lambda *a: calls.append(1) or real(*a))
+    real = layers._FfnCore.apply
+    monkeypatch.setattr(layers._FfnCore, "apply",
+                        lambda *a: calls.append(a[-1]) or real(*a))
     m(xb, 11)
-    assert calls == [1]
+    assert calls == [True]      # one core, with K2
 
 
 GEOM = dict(hidden_dim=64, n_layers=2, num_heads=4, input_dim=32,
@@ -200,7 +222,7 @@ def test_patched_bf16_step_matches_the_patched_jax_step(monkeypatch):
     from neurosync_trainer_lite_tpu_torch.utils.weights import params_from_jax
 
     monkeypatch.setattr(jmodel, "_ffn", jffn.ffn_fused)
-    monkeypatch.setattr(tmodel, "_ffn", ffn_bwd.ffn_fused)
+    monkeypatch.setattr(tmodel, "_ffn", layers.ffn_fused)
     jcfg, tcfg = JConfig(**GEOM, dropout=0.0), Config(**GEOM, dropout=0.0)
     params = jmodel.init_seq2seq(jax.random.PRNGKey(1), jcfg)
     js, tx = jstep.init_train_state(jcfg, 5, params=params)
@@ -239,7 +261,7 @@ def test_patched_step_at_dropout_draws_the_default_masks(monkeypatch):
     src = torch.from_numpy(rng.standard_normal((4, 16, 32)).astype(np.float32))
     trg = torch.from_numpy(rng.random((4, 16, 7)).astype(np.float32))
     runs = []
-    for fn in (tmodel._ffn, ffn_bwd.ffn_fused):
+    for fn in (tmodel._ffn, layers.ffn_fused):
         monkeypatch.setattr(tmodel, "_ffn", fn)
         state = tstep.init_train_state(
             cfg, 5, generator=torch.Generator().manual_seed(3), device="cpu")

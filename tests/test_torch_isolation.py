@@ -120,6 +120,28 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+_IMPORT_OPS = """
+import importlib, pkgutil, sys
+import neurosync_trainer_lite_tpu_torch.ops as ops
+names = [m.name for m in pkgutil.walk_packages(ops.__path__, ops.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+models = sorted(n for n in sys.modules
+                if n.startswith("neurosync_trainer_lite_tpu_torch.models"))
+print(len(names), models)
+sys.exit(1 if models or len(names) < 10 else 0)
+"""
+
+
+def test_ops_import_nothing_of_models():
+    """The kernels and their wrappers sit below the models: importing every
+    ops/ module loads no module of neurosync_trainer_lite_tpu_torch.models."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_OPS], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     """chip_smoke.py needs a CUDA card: without one it exits non-zero,
     prints no result line, and never imports JAX on the way."""

@@ -14,7 +14,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from neurosync_trainer_lite_tpu_torch.models import seq2seq
+from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
 from neurosync_trainer_lite_tpu_torch.ops import kernels
 from neurosync_trainer_lite_tpu_torch.ops import layer_norm_kernel as lnk
 
@@ -97,7 +97,7 @@ def test_fp32_keeps_the_plain_composition(monkeypatch):
     def refuse(*_):
         raise AssertionError("fp32 LayerNorm took the bf16 Function")
 
-    monkeypatch.setattr(seq2seq._LayerNormBf16, "apply", refuse)
+    monkeypatch.setattr(layers._LayerNormBf16, "apply", refuse)
     x, w, b, _ = _inputs((3, 7, 32), 5)
     xf = x.float()
     out = seq2seq.layer_norm(xf, w, b)

@@ -18,6 +18,7 @@ from neurosync_trainer_lite_tpu.config import Config as JConfig
 from neurosync_trainer_lite_tpu.models import seq2seq as jmodel
 from neurosync_trainer_lite_tpu.training import step as jstep
 from neurosync_trainer_lite_tpu_torch.config import Config
+from neurosync_trainer_lite_tpu_torch.models import layers
 from neurosync_trainer_lite_tpu_torch.models import seq2seq as tmodel
 from neurosync_trainer_lite_tpu_torch.training import step as tstep
 from neurosync_trainer_lite_tpu_torch.utils.weights import params_from_jax
@@ -37,13 +38,13 @@ def _batch(seed=0, B=4, T=16):
 def checkpoints(monkeypatch):
     """Counts the layers the port runs under torch.utils.checkpoint."""
     calls = []
-    real = tmodel.checkpoint
+    real = layers.checkpoint
 
     def spy(fn, *args, **kwargs):
         calls.append(type(fn).__name__)
         return real(fn, *args, **kwargs)
 
-    monkeypatch.setattr(tmodel, "checkpoint", spy)
+    monkeypatch.setattr(layers, "checkpoint", spy)
     return calls
 
 
@@ -134,5 +135,5 @@ def test_remat_count_follows_the_jax_scan_split(kw, want):
     """JAX _scan_layers: the first remat_layers layers of a stack in scope,
     all of them at -1 or at >= n_layers."""
     cfg = Config(n_layers=3, **kw)
-    assert (tmodel._remat_count(cfg, "encoder", 3),
-            tmodel._remat_count(cfg, "decoder", 3)) == want
+    assert (layers._remat_count(cfg, "encoder", 3),
+            layers._remat_count(cfg, "decoder", 3)) == want

@@ -30,7 +30,10 @@ MODULES = {
     "ops/rope_pallas.py": "K1's Pallas kernel: ops/rope_kernel.py "
                           "(rope_rotate, csrc/rope.cu)",
     "ops/ffn_bwd_pallas.py": "K2's Pallas kernel: ops/ffn_bwd.py "
-                             "(ffn_bwd_dh1, ffn_fused, csrc/ffn_bwd.cu)",
+                             "(ffn_bwd_dh1, csrc/ffn_bwd.cu); its "
+                             "ffn_lean_core_fused and ffn_fused are "
+                             "models/layers.py's FFN core with k2 and "
+                             "ffn_fused",
     "utils/torch_interop.py": "folded into utils/weights.py, whose "
                               "docstring maps each name",
     "utils/compilation_cache.py": "not applicable: eager PyTorch compiles "

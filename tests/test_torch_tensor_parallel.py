@@ -67,14 +67,13 @@ def tp_cfg(case: dict, tp: int = 2) -> Config:
 
 
 def _case_steps(case, rank, spec, init, mesh):
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
-    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+    from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
 
     cfg = tp_cfg(case, mesh.tp)
     src, trg = batch(case["seed"], cfg.batch_size, cfg)
     plain_ffn = seq2seq._ffn
     if case.get("ffn_fused"):
-        seq2seq._ffn = ffn_bwd.ffn_fused
+        seq2seq._ffn = layers.ffn_fused
     tensor.reset_collectives()
     try:
         losses, norms, sd, _ = port_steps(cfg, init, src, trg, mesh=mesh)
@@ -692,18 +691,17 @@ K2_BF16_LIMITS = dict(loss=1e-3, norm=2e-3,
 
 
 def test_k2_routed_bf16_step_at_tp2(ranks, jax_init, monkeypatch):
-    """seq2seq._ffn routed through ops/ffn_bwd.ffn_fused (K2's plain
+    """seq2seq._ffn routed through models/layers.ffn_fused (K2's plain
     version on the CPU) in bf16 at dropout 0.3: tp = 2 against tp = 1
     within K2_BF16_LIMITS; the replicated leaves (db2 among them: Σdy of
     the replicated dy) bitwise equal on both ranks."""
-    from neurosync_trainer_lite_tpu_torch.models import seq2seq
-    from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
+    from neurosync_trainer_lite_tpu_torch.models import layers, seq2seq
 
     _, init = jax_init
     case = next(c for c in TP2_CASES if c["name"] == "k2_bf16")
     cfg = Config(**{**GEOM, **case["cfg"]})
     src, trg = batch(case["seed"], cfg.batch_size, cfg)
-    monkeypatch.setattr(seq2seq, "_ffn", ffn_bwd.ffn_fused)
+    monkeypatch.setattr(seq2seq, "_ffn", layers.ffn_fused)
     losses, norms, sd, _ = port_steps(cfg, init, src, trg)
     per_rank = results(ranks[1, 2], "k2_bf16", 2)
     replicated_equal_across_model_ranks(per_rank, 2)

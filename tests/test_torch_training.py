@@ -262,10 +262,10 @@ def _port_ffn(p, rate):
 
 
 def test_ffn_lean_core_matches_jax_at_rate_0():
-    """bf16, train, no dropout: the lean cores on both sides, the same
-    rounding points; bf16 results within one ulp of the largest, the fp32
-    weight gradients (sums of those bf16 values) within 2^-7 of the largest
-    too."""
+    """bf16, train, no dropout: the port's FFN core (models/layers.py) and
+    JAX's lean core, the same rounding points; bf16 results within one ulp
+    of the largest, the fp32 weight gradients (sums of those bf16 values)
+    within 2^-7 of the largest too."""
     rng = np.random.default_rng(11)
     p = _ffn_params(rng)
     x = rng.standard_normal((4, 8, 32)).astype(np.float32)
@@ -290,9 +290,9 @@ def test_ffn_lean_core_matches_jax_at_rate_0():
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 def test_ffn_lean_core_matches_the_plain_path(rate):
-    """Lean vs plain composition in the port: the same mask (one draw from
-    the same seed), a bit-identical forward, and gradients within 2e-2
-    (tests/test_model.py's bound: the plain path rounds the weight
+    """The FFN core vs the plain composition in the port: the same mask (one
+    draw from the same seed), a bit-identical forward, and gradients within
+    2e-2 (tests/test_model.py's bound: the plain path rounds the weight
     gradients to bf16)."""
     rng = np.random.default_rng(12)
     m = _port_ffn(_ffn_params(rng), rate)

@@ -51,6 +51,7 @@ from neurosync_trainer_lite_tpu_torch.data.waveform import (  # noqa: E402
     _center_trim,
     load_waveform_data,
 )
+from neurosync_trainer_lite_tpu_torch.models import layers  # noqa: E402
 from neurosync_trainer_lite_tpu_torch.models import wav2vec2 as w2v  # noqa: E402
 from neurosync_trainer_lite_tpu_torch.ops.attention import (  # noqa: E402
     dropout_keep,
@@ -246,7 +247,8 @@ def test_gelu_core_matches_plain_autograd(rate):
     w2 = (torch.randn(64, 256, generator=g) * 0.1).requires_grad_(True)
     b2 = (torch.randn(64, generator=g) * 0.1).requires_grad_(True)
     q, seed = int(round(rate * 256)), 1234
-    ours = w2v._FfnGeluCore.apply(x, w1, b1, w2, b2, seed, q)
+    ours = layers._FfnCore.apply(x, w1, b1, w2, b2, seed, q, "gelu", None,
+                                 False)
     dy = torch.randn(ours.shape, generator=g).bfloat16()
     ours.backward(dy)
     got = [t.grad.clone() for t in (x, w1, b1, w2, b2)]
