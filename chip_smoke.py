@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only tools      # phases 1, 2 and 15 alone
     python3 chip_smoke.py --only ln         # phases 1, 2, 4 and 5 alone
     python3 chip_smoke.py --only la         # the same for the lean attention
+    python3 chip_smoke.py --only ffn        # the same for the FFN epilogue
 
 Needs one NVIDIA H100 (sm_90a), the CUDA toolkit (nvcc) and PyTorch built
 for CUDA; imports nothing of JAX. Every phase must pass, else the script
@@ -64,7 +65,11 @@ exits non-zero before its result line.
    la_checks) run both phases at their own shapes; la_checks holds the
    lean attention pair against its plain pair at every training site's
    [128, 16, 128, 64] and a tp = 2 rank's [128, 8, 128, 64] and times it
-   beside SDPA with dropout_p 0.3 (the `lean_attention` record).
+   beside SDPA with dropout_p 0.3 (the `lean_attention` record). The FFN
+   epilogue kernels (ffn_checks) are held against their plain versions at
+   the training FFNs' [16384, 4096] (ReLU q 77 and 0, GELU q 26 and 0) and
+   a tp = 2 rank's column block, and each entry point timed at that shape
+   (the `ffn_epilogue` record).
 6. Reproduces the reference goldens on the card in fp32 with TF32 off:
    tests/fixtures/reference_tiny forward (2e-5), chunked decode
    (2e-6 / 1e-4) and the reference loss (rel 1e-5).
@@ -309,13 +314,21 @@ LN_STEP = {**LN_FORWARD, "layer_norm_bwd": LN_FORWARD["layer_norm_fwd"]}
 #: cross-attentions), at dropout 0 too; a rank of tensor parallelism runs
 #: them over its heads
 LA_STEP = {"lean_attention_fwd": 24, "lean_attention_bwd": 24}
+#: the FFN epilogue kernels (csrc/ffn_epilogue.cu) in a bf16 training step
+#: of the Seq2Seq: a forward and a backward at each of its 16 ReLU FFNs, at
+#: dropout 0 too; a step routed through K2 keeps the forward alone; a
+#: rematted layer launches its forward again in the backward; a rank of
+#: tensor parallelism runs them over its columns
+FFN_STEP = {"ffn_epi_fwd": 16, "ffn_epi_bwd": 16}
+FFN_K2_STEP = {"ffn_epi_fwd": 16}
 #: a step of (a) with every layer rematted: the backward launches the lean
 #: attention forward again at each site, K1 again for q and k (48), and
 #: the LayerNorm forward again for each LayerNorm inside a layer (40; the
 #: stacks' final ones are outside the layers)
 LA_REMAT_STEP = {"rope_rotate": 148, **LN_STEP,
                  "layer_norm_fwd": LN_STEP["layer_norm_fwd"] + 40,
-                 "lean_attention_fwd": 48, "lean_attention_bwd": 24}
+                 "lean_attention_fwd": 48, "lean_attention_bwd": 24,
+                 **FFN_STEP, "ffn_epi_fwd": 32}
 #: kernel launches of one step at each, and the 'model' all-reduces of one
 #: full-width step (8 + 8 layers): a row-parallel linear's forward (2 an
 #: encoder layer, 3 a decoder layer), a column-parallel linear's backward
@@ -323,11 +336,12 @@ LA_REMAT_STEP = {"rope_rotate": 148, **LN_STEP,
 TP_LAUNCHES = {"'pallas', dropout 0": {"rope_rotate": 52,
                                        "fused_rope_attention": 24,
                                        "fused_rope_attention_bwd": 24,
-                                       **LN_STEP},
+                                       **LN_STEP, **FFN_STEP},
                "'auto', dropout 0.3, FFN through K2": {"rope_rotate": 100,
                                                        "ffn_bwd_dh1": 16,
                                                        **LN_STEP,
-                                                       **LA_STEP}}
+                                                       **LA_STEP,
+                                                       **FFN_K2_STEP}}
 TP_COLLECTIVES = {"forward": 8 * 2 + 8 * 3, "backward": 8 * 4 + 8 * 7,
                   "grad_norm": 1}
 #: (t2)'s fp32 MeshDecoder against one process, a share of max|out|
@@ -356,13 +370,14 @@ STEP_PROBES = {
 #: each step_probe run's kernel launches a step (phase 8's and 9's counts
 #: of the same configuration), read from the probe's stderr
 STEP_PROBE_LAUNCHES = {
-    "a": {"rope_rotate": 100, **LN_STEP, **LA_STEP},
+    "a": {"rope_rotate": 100, **LN_STEP, **LA_STEP, **FFN_STEP},
     "b": {"rope_rotate": 52, "fused_rope_attention": 24,
-          "fused_rope_attention_bwd": 24, **LN_STEP},
-    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP},
+          "fused_rope_attention_bwd": 24, **LN_STEP, **FFN_STEP},
+    "e": {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP,
+          **FFN_K2_STEP},
     "c": {"rope_rotate": 100, "flash_attention": 24,
           "flash_attention_bwd_dq": 24, "flash_attention_bwd_dkdv": 24,
-          **LN_STEP},
+          **LN_STEP, **FFN_STEP},
 }
 EXCESS_LIMIT = 0.05            # attention_gradients_in_model
 #: (B, N, T, h) K3 gets at (c) window 512 x batch 32, (d) 2048 x 8, and
@@ -372,6 +387,12 @@ K3_SHAPES = {"c": (32, 16, 512, 64), "d": (8, 16, 2048, 64),
 #: (M, H, F) K2 gets at step (a) (128 x 128 rows, hidden 1024, FFN 4096),
 #: the JAX test's ragged shape and M off the 128-row tile (the wgmma
 #: kernel), and H, F not multiples of 8 (the WMMA kernel)
+#: [rows, F] the FFN epilogue kernels get at step (a) and wav2vec2's cell
+#: (128 x 128 rows, FFN 4096), and the share of the GELU's outputs that may
+#: lie one bf16 rounding from the plain version's (erf and exp of the
+#: card's math library, one fp32 ulp away, can flip a rounding)
+FFN_SHAPE = (16384, 4096)
+FFN_GELU_SHARE = 1e-3
 K2_SHAPES = [(16384, 1024, 4096), (96, 64, 192), (1000, 1024, 4096),
              (33, 20, 70)]
 
@@ -1494,6 +1515,129 @@ def la_checks(torch, records):
     records["lean_attention"].update(max_abs_err=worst, by_shape=by_shape)
 
 
+def ffn_checks(torch, records):
+    """Phases 4 and 5 for the FFN epilogue kernels (csrc/ffn_epilogue.cu):
+    each entry point against its plain version at the training FFNs'
+    [16,384 x 4,096] (ReLU at thresholds 77 and 0, the Seq2Seq's; GELU at
+    26 and 0, wav2vec2's) and a tp = 2 rank's [16,384 x 2,048] (its bits a
+    column block of the global draw, rows 4,096 apart): ReLU bitwise, h1
+    bitwise, the GELU's a, dh1 and the backward's dw2 operand bitwise or
+    one bf16 rounding away in
+    at most FFN_GELU_SHARE of the elements, db1 within 1e-5 of its largest,
+    every output bitwise repeatable; then each entry point timed at the
+    training shape beside its plain version and its bound."""
+    from neurosync_trainer_lite_tpu_torch.models import layers
+    from neurosync_trainer_lite_tpu_torch.ops import attention as attn
+    from neurosync_trainer_lite_tpu_torch.ops import ffn_epilogue as fe
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, width = FFN_SHAPE
+
+    def operands(f, q, blocks):
+        p32 = torch.randn(rows, f, device="cuda", generator=gen) * 2
+        b1 = torch.randn(f, device="cuda", generator=gen) * 0.5
+        da32 = torch.randn(rows, f, device="cuda", generator=gen)
+        with attn.dropout_rows(*blocks):
+            bits = layers._ffn_bits(13, q, (rows, f), f, "cuda")
+        return p32, b1, da32, bits
+
+    def compare(what, got, want, bitwise):
+        g, w = got.float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 7)
+        roundings = ((g - w).abs() / ulp).max().item()
+        off = (got != want).float().mean().item()
+        worst[0] = max(worst[0], (g - w).abs().max().item())
+        ok = (got.dtype == want.dtype and got.shape == want.shape
+              and (torch.equal(got, want) if bitwise else
+                   roundings <= 1 and off <= FFN_GELU_SHARE))
+        bar = "bitwise" if bitwise else "within one bf16 rounding"
+        check(ok, f"FFN-E {what}: {bar} of the plain version ({off:.3e} of "
+              f"the elements differ, at most {roundings:.3f} roundings)")
+        return off
+
+    shares, worst = {}, [0.0]
+    cases = [("training", width, act, q, (1, 0)) for act, q in
+             (("relu", 77), ("relu", 0), ("gelu", 26), ("gelu", 0))]
+    cases += [("tp = 2 rank", width // 2, act, q, (1, 0, 2, 1)) for act, q
+              in (("relu", 77), ("gelu", 26))]
+    for label, f, act, q, blocks in cases:
+        tag = f"{label} [{rows}, {f}] {act} q={q}"
+        p32, b1, da32, bits = operands(f, q, blocks)
+        check(fe.takes_kernel(p32), f"FFN-E {tag}: the kernels take the "
+              f"operands")
+        a, h1 = fe.ffn_epi_fwd_cuda(p32, b1, bits, q, act)
+        want_a, want_h1 = fe.ffn_epi_fwd_plain(p32, b1, bits, q, act)
+        r = want_a if act == "relu" else want_h1
+        got = {"a": (a, want_a)}
+        if act == "gelu":
+            compare(f"{tag} h1", h1, want_h1, True)
+        dh1, db1, a2 = fe.ffn_epi_bwd_cuda(da32, r, bits, q, act)
+        want_dh1, want_db1, want_a2 = fe.ffn_epi_bwd_plain(da32, r, bits, q,
+                                                           act)
+        got["dh1"] = (dh1, want_dh1)
+        if act == "gelu":
+            got["dw2 operand"] = (a2, want_a2)
+            check(torch.equal(a2, a), f"FFN-E {tag}: the backward's dw2 "
+                  f"operand is the forward's a, bitwise")
+        torch.cuda.synchronize()
+        for name, (g, w) in got.items():
+            shares[f"{tag} {name}"] = compare(f"{tag} {name}", g, w,
+                                              act == "relu")
+        gap = ((db1 - want_db1).abs().max()
+               / want_db1.abs().max().clamp_min(1e-30)).item()
+        check(gap <= 1e-5, f"FFN-E {tag} db1 within 1e-5 of its largest "
+              f"({gap:.3e})")
+        again = [fe.ffn_epi_fwd_cuda(p32, b1, bits, q, act)[0],
+                 *fe.ffn_epi_bwd_cuda(da32, r, bits, q, act)]
+        check(all(x is y or torch.equal(x, y)
+                  for x, y in zip(again, (a, dh1, db1, a2))),
+              f"FFN-E {tag}: forward and backward bitwise repeatable")
+        del p32, b1, da32, bits, a, h1, want_a, want_h1, r, got, dh1, db1
+        del a2, want_dh1, want_db1, want_a2, again
+        torch.cuda.empty_cache()
+
+    # the least bytes an element, as ffn_epi_roofline_pct.train counts
+    # them (the bits, the GELU's writes of h1 and of dw2's operand and the
+    # db1 scratch left out), and with all of them as the kernels move them
+    least = {"fwd": 6, "bwd": 8}
+    moved = {("relu", "fwd"): 7, ("relu", "bwd"): 8, ("gelu", "fwd"): 9,
+             ("gelu", "bwd"): 11}
+    by_entry, elements = {}, rows * width
+    for act, q in (("relu", 77), ("gelu", 26)):
+        p32, b1, da32, bits = operands(width, q, (1, 0))
+        _, h1 = fe.ffn_epi_fwd_plain(p32, b1, bits, q, act)
+        r = h1 if act == "gelu" else fe.ffn_epi_fwd_plain(p32, b1, bits, q,
+                                                          act)[0]
+        calls = {"fwd": (lambda: fe.ffn_epi_fwd_cuda(p32, b1, bits, q, act),
+                         lambda: fe.ffn_epi_fwd_plain(p32, b1, bits, q, act)),
+                 "bwd": (lambda: fe.ffn_epi_bwd_cuda(da32, r, bits, q, act),
+                         lambda: fe.ffn_epi_bwd_plain(da32, r, bits, q,
+                                                      act))}
+        for entry, (kernel, plain) in calls.items():
+            with torch.no_grad():
+                rec = dict(ms=device_ms(kernel, iters=10),
+                           plain_ms=device_ms(plain, iters=5, reps=5))
+            rec["bound_ms"], rec["bound_by"] = bound(
+                least[entry] * elements, 0)
+            rec["moved_bound_ms"] = bound(moved[act, entry] * elements, 0)[0]
+            rec["shape"] = [rows, width]
+            print_timed(f"ffn_epi_{entry}", f"{act}, q={q}", rec)
+            print(f"time ffn_epi_{entry} ({act}, q={q}): "
+                  f"{100 * rec['bound_ms'] / rec['ms']:.2f}% of its least "
+                  f"bytes' bound, {100 * rec['moved_bound_ms'] / rec['ms']:.2f}"
+                  f"% of the bytes it moves", flush=True)
+            by_entry[f"{act} {entry}"] = rec
+        del p32, b1, da32, bits, h1, r, calls
+        torch.cuda.empty_cache()
+    gelu = [by_entry[f"gelu {e}"] for e in ("fwd", "bwd")]
+    records["ffn_epilogue"].update(
+        {key: sum(r[key] for r in gelu) for key in ("ms", "plain_ms",
+                                                    "bound_ms")},
+        bound_by="bytes", shape=[rows, width], by_shape=by_entry,
+        max_abs_err=worst[0], shares=shares)
+
+
 def serve_long(torch, np):
     """Phase 7b (s2): the full-width model at frame_size=512 from WAV bytes,
     at 'auto' and 'pallas' (both take K3: kv_len 512, and K4's gate fails
@@ -2178,9 +2322,10 @@ def train(torch):
 
     configs = {"a": Config(), "b": Config(attention_impl="pallas",
                                           dropout=0.0)}
-    expected = {"a": {"rope_rotate": 100, **LN_STEP, **LA_STEP},
+    expected = {"a": {"rope_rotate": 100, **LN_STEP, **LA_STEP, **FFN_STEP},
                 "b": {"rope_rotate": 52, "fused_rope_attention": 24,
-                      "fused_rope_attention_bwd": 24, **LN_STEP}}
+                      "fused_rope_attention_bwd": 24, **LN_STEP,
+                      **FFN_STEP}}
     base = configs["a"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     weights = init_seq2seq(base, gen, device="cuda").state_dict()
@@ -2239,7 +2384,8 @@ def train_remat_lean(torch, cfg, weights, src, trg) -> dict:
     from neurosync_trainer_lite_tpu_torch.training.step import (
         init_train_state, make_train_step)
 
-    runs = {"no remat": (cfg, {"rope_rotate": 100, **LN_STEP, **LA_STEP}),
+    runs = {"no remat": (cfg, {"rope_rotate": 100, **LN_STEP, **LA_STEP,
+                               **FFN_STEP}),
             "remat 'all'": (cfg.replace(remat=True), LA_REMAT_STEP)}
     got = {}
     for name, (run_cfg, expected) in runs.items():
@@ -2301,7 +2447,8 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
     try:
         launches, _, _, med, profiled = train_config(
             torch, cfg, weights, src, trg, label,
-            {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP},
+            {"rope_rotate": 100, "ffn_bwd_dh1": 16, **LN_STEP, **LA_STEP,
+             **FFN_K2_STEP},
             warmup=TRAIN_WARMUP, timed=TRAIN_TIMED)
     finally:
         seq2seq._ffn = default
@@ -2310,7 +2457,8 @@ def train_ffn_fused(torch, cfg, weights, src, trg, medians: dict):
         "K2": (r"ffn_bwd_wgmma_kernel", r"ffn_bwd_wmma_kernel"),
         "K1": (r"rope_rows", None)})
     train_config(torch, cfg, weights, src, trg, "(e) with the default _ffn "
-                 "again", {"rope_rotate": 100, **LN_STEP, **LA_STEP},
+                 "again", {"rope_rotate": 100, **LN_STEP, **LA_STEP,
+                           **FFN_STEP},
                  warmup=0, timed=0, profile=False, falls=False)
 
     sound = ffn_bwd.ffn_bwd_dh1_cuda
@@ -2344,11 +2492,12 @@ def train_long_windows(torch, weights, medians: dict):
     gen = torch.Generator(device="cuda").manual_seed(5)
     main_path = {}
 
-    def k3(fwd, bwd=24, rope=100, norms=0):
+    def k3(fwd, bwd=24, rope=100, norms=0, ffns=0):
         return {"rope_rotate": rope, "flash_attention": fwd,
                 "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkdv": bwd,
                 **LN_STEP,
-                "layer_norm_fwd": LN_STEP["layer_norm_fwd"] + norms}
+                "layer_norm_fwd": LN_STEP["layer_norm_fwd"] + norms,
+                **FFN_STEP, "ffn_epi_fwd": FFN_STEP["ffn_epi_fwd"] + ffns}
 
     cfg_c = Config(dropout=0.0, batch_size=32, micro_batch_size=512)
     src, trg = train_batch(torch, cfg_c, gen)
@@ -2383,16 +2532,17 @@ def train_long_windows(torch, weights, medians: dict):
     # the rematted layers launch their forward kernels again in the
     # backward: K3 forward once per attention, K1 twice (q and k), the
     # LayerNorm forward once per LayerNorm of a layer (2 an encoder layer,
-    # 3 a decoder layer; the stacks' final ones are outside the layers)
+    # 3 a decoder layer; the stacks' final ones are outside the layers),
+    # the FFN epilogue's forward once per layer
     runs = {
         "no remat": (cfg_d, k3(24), 1, 3),
         "remat 'all'": (cfg_d.replace(remat=True),
-                        k3(48, rope=148, norms=40), 1, 3),
+                        k3(48, rope=148, norms=40, ffns=16), 1, 3),
         "remat 'dots'": (cfg_d.replace(remat=True, remat_policy="dots"),
-                         k3(48, rope=148, norms=40), 0, 0),
+                         k3(48, rope=148, norms=40, ffns=16), 0, 0),
         "remat 'decoder', 2 layers": (
             cfg_d.replace(remat=True, remat_scope="decoder", remat_layers=2),
-            k3(28, rope=108, norms=6), 0, 0),
+            k3(28, rope=108, norms=6, ffns=2), 0, 0),
     }
     print("train (d): batch 8 x 2048 frames, 'auto', dropout 0", flush=True)
     results = {}
@@ -3108,7 +3258,8 @@ def parallel(torch, np) -> dict:
              "parallel (p3)": summed(r["decode"]["launches"] for r in p2),
              "parallel (p4)": summed(r["train_model"]["launches"] for r in p2)}
     want = {"rope_rotate": 100 * DP_STEPS,
-            **{k: n * DP_STEPS for k, n in {**LN_STEP, **LA_STEP}.items()}}
+            **{k: n * DP_STEPS for k, n in {**LN_STEP, **LA_STEP,
+                                            **FFN_STEP}.items()}}
     check(p1["launches"] == want, f"(p1) kernel launches of {DP_STEPS} "
           f"steps of (a): {p1['launches']} == {want}")
     for path in ("parallel (p2)", "parallel (p3)"):   # 'pallas' runs K4
@@ -4001,10 +4152,12 @@ def tools(torch, np, step_a=None, request_fps=None) -> dict:
     (d0, head), paths["bench train"] = counted("train")
     check(paths["bench train"] == {"rope_rotate": 100 * steps,
                                    **{k: n * steps for k, n in
-                                      {**LN_STEP, **LA_STEP}.items()}},
+                                      {**LN_STEP, **LA_STEP,
+                                       **FFN_STEP}.items()}},
           f"(b1) bench train: {steps} steps of (a)'s geometry at dropout 0 "
           f"and 0.3 launched {paths['bench train']} == K1 100, the "
-          f"LayerNorm 42 + 42 and the lean attention 24 + 24 a step")
+          f"LayerNorm 42 + 42, the lean attention 24 + 24 and the FFN "
+          f"epilogue 16 + 16 a step")
     check(d0["metric"] == "228M_train_samples_per_sec_per_chip_dropout0"
           and head["metric"]
           == "228M_train_samples_per_sec_per_chip_dropout0.3"
@@ -4188,10 +4341,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--only", choices=("serve-s2", "live", "parallel", "tensor",
-                           "compat", "tools", "ln", "la"),
+                           "compat", "tools", "ln", "la", "ffn"),
         help="build the kernels and run phase 7b (serve-s2), 7c (live), 12 "
              "(parallel), 13 (tensor), 14 (compat), 15 (tools) or 4 and 5 "
-             "(ln, the LayerNorm kernels; la, the lean attention kernels) "
+             "(ln, the LayerNorm kernels; la, the lean attention kernels; "
+             "ffn, the FFN epilogue kernels) "
              "alone, printing no result line: "
              "to time the (s2) request or the live run of two trees side by "
              "side")
@@ -4231,6 +4385,7 @@ def main() -> int:
          "tools": tools,
          "ln": lambda torch, _: ln_checks(torch, {"layer_norm": {}}),
          "la": lambda torch, _: la_checks(torch, {"lean_attention": {}}),
+         "ffn": lambda torch, _: ffn_checks(torch, {"ffn_epilogue": {}}),
          }[args.only](torch, np)
         print(card, flush=True)
         return 0
@@ -4276,6 +4431,14 @@ def main() -> int:
             tolerance="out, dq, dk, dv two bf16 roundings of their terms' "
                       "size and 99% bitwise",
             launch_names=["lean_attention_fwd", "lean_attention_bwd"]),
+        "ffn_epilogue": dict(
+            route="cuda", source=source + "ffn_epilogue.cu",
+            replaces="none: the JAX package's FFN cores "
+                     "(models/seq2seq.py), whose epilogues XLA fuses",
+            tolerance="ReLU bitwise; GELU h1 bitwise, a, dh1 and dw2's "
+                      "operand one bf16 rounding in at most 1e-3 of the "
+                      "elements; db1 1e-5*max|plain|",
+            launch_names=["ffn_epi_fwd", "ffn_epi_bwd"]),
         "ffn_bwd_dh1": dict(
             route="cuda", source=source + "ffn_bwd.cu",
             replaces="neurosync_trainer_lite_tpu/ops/ffn_bwd_pallas.py:115",
@@ -4288,6 +4451,7 @@ def main() -> int:
     k2_checks(torch, records)
     ln_checks(torch, records)
     la_checks(torch, records)
+    ffn_checks(torch, records)
     reference_goldens(torch, np)
     paths, request_fps = {}, {}
     paths["serve"], request_fps = serve(torch, np)
@@ -4319,6 +4483,16 @@ def main() -> int:
             if f"{pair}_fwd" in counts:
                 counts[pair] = (counts[f"{pair}_fwd"]
                                 + counts.get(f"{pair}_bwd", 0))
+    # the FFN epilogue's three kernels: the Seq2Seq's ReLU runs no act
+    # launch, so its forward and backward must run
+    for name in ("ffn_epi_fwd", "ffn_epi_bwd"):
+        check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
+              f"{name} ran in the main path runs")
+    for counts in paths.values():
+        if "ffn_epi_fwd" in counts:
+            counts["ffn_epilogue"] = sum(
+                counts.get(name, 0) for name in
+                records["ffn_epilogue"]["launch_names"])
     for name in records:
         check(sum(counts.get(name, 0) for counts in paths.values()) > 0,
               f"{name} ran in the main path runs")

@@ -56,13 +56,14 @@
 
 #include <algorithm>
 
+#include "column_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxNv = 4;      // 16-byte vectors a lane holds, at most
 constexpr int kMaxWidth = 32 * 8 * kMaxNv;
-constexpr int kSplit = 16;     // nsync_ln_bwd_params: threads summing one column
 constexpr float kEps = 1e-5f;
 
 using bf16 = __nv_bfloat16;
@@ -270,41 +271,19 @@ nsync_ln_bwd(const bf16* __restrict__ x, const bf16* __restrict__ dout,
   for (int j = threadIdx.x; j < 2 * h; j += kThreads) mine[j] = red[j];
 }
 
-// dw and db: the scratch [blocks, 2, h] summed over its blocks. Thread
-// (lane, t) of a block sums column 32 * blockIdx.x + lane over the scratch
-// rows t, t + kSplit, ... in order; thread t = 0 then adds the kSplit sums
-// in order.
-__global__ void __launch_bounds__(32 * kSplit)
+// dw and db: the scratch [blocks, 2, h] summed over its blocks in a fixed
+// order (column_sum.cuh), its first h columns into dw, the rest into db.
+__global__ void __launch_bounds__(32 * kSumSplit)
 nsync_ln_bwd_params(const float* __restrict__ part, int blocks, int h,
                     float* __restrict__ dw, float* __restrict__ db) {
-  __shared__ float sums[kSplit][32];
-  const int j = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
-  if (j < 2 * h)
-    for (int i = threadIdx.y; i < blocks; i += kSplit)
-      s = __fadd_rn(s, part[(long long)i * 2 * h + j]);
-  sums[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y != 0 || j >= 2 * h) return;
-  float t = sums[0][threadIdx.x];
-#pragma unroll
-  for (int y = 1; y < kSplit; ++y) t = __fadd_rn(t, sums[y][threadIdx.x]);
+  int j;
+  float t;
+  if (!column_sum(part, blocks, 2 * h, j, t)) return;
   if (j < h) dw[j] = t;
   else db[j - h] = t;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-int sm_count() {
-  static const int count = [] {
-    int device = 0, n = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
-      return 132;
-    return n;
-  }();
-  return count;
-}
 
 int row_blocks(int rows) { return (rows + kWarps - 1) / kWarps; }
 
@@ -334,7 +313,8 @@ cudaError_t bwd_launch(const bf16* x, const bf16* dout, const float* mean, const
                                                                      dx, part, rows, h);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nsync_ln_bwd_params<<<(2 * h + 31) / 32, dim3(32, kSplit), 0, s>>>(part, blocks, h, dw, db);
+  nsync_ln_bwd_params<<<column_sum_grid(2 * h), column_sum_block(), 0, s>>>(part, blocks, h, dw,
+                                                                           db);
   return cudaGetLastError();
 }
 

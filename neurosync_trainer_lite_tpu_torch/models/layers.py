@@ -9,9 +9,11 @@ Linear, the LayerNorm, the FFN and the remat runner.
   (csrc/layer_norm.cu, ops/layer_norm_kernel.py); fp32 keeps plain
   autograd, as in JAX.
 - ffn: linear → ReLU or exact GELU → dropout → linear. bf16 training takes
-  one Function (_FfnCore) that draws its dropout mask from the seed and
-  keeps one activation-sized residual; ffn_fused routes the Seq2Seq's ReLU
-  FFN backward through kernel K2 (ops/ffn_bwd.py).
+  one Function (_FfnCore) that draws its dropout bits from the seed and
+  keeps one activation-sized residual; the passes over its hidden width
+  between the two products are one kernel each way on the card
+  (csrc/ffn_epilogue.cu, ops/ffn_epilogue.py); ffn_fused routes the
+  Seq2Seq's ReLU FFN backward through kernel K2 (ops/ffn_bwd.py).
 - run_layers: the layer loop, with cfg.remat (remat_scope, remat_layers,
   remat_policy): the first remat_layers layers of each stack in scope run
   under torch.utils.checkpoint and are recomputed in the backward; 'dots'
@@ -21,10 +23,8 @@ Linear, the LayerNorm, the FFN and the remat runner.
 from __future__ import annotations
 
 import functools
-import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -35,13 +35,16 @@ from torch.utils.checkpoint import (
 from neurosync_trainer_lite_tpu_torch.config import Config
 from neurosync_trainer_lite_tpu_torch.ops import ffn_bwd
 from neurosync_trainer_lite_tpu_torch.ops.attention import (
-    _bf16_value,
-    _drop,
     _linear,
     _mm_f32,
     dropout,
-    dropout_keep,
+    dropout_bits,
     dropout_mask_q,
+)
+from neurosync_trainer_lite_tpu_torch.ops.ffn_epilogue import (
+    ACTIVATIONS,
+    ffn_epi_bwd,
+    ffn_epi_fwd,
 )
 from neurosync_trainer_lite_tpu_torch.ops.layer_norm_kernel import (
     EPS as _LN_EPS,
@@ -113,24 +116,14 @@ def layer_norm(x, weight, bias):
 # the FFN
 
 
-#: the FFN activations by name: ReLU (the Seq2Seq) and the exact, erf GELU
-#: (wav2vec 2.0)
-ACTIVATIONS = {"relu": torch.relu, "gelu": F.gelu}
-
-
-def gelu_grad(h: torch.Tensor) -> torch.Tensor:
-    """d GELU(h) / dh of the exact GELU, in h's type: Φ(h) + h·φ(h)."""
-    return (0.5 * (1.0 + torch.erf(h * math.sqrt(0.5)))
-            + h * torch.exp(-0.5 * h * h) / math.sqrt(2.0 * math.pi))
-
-
-def _ffn_keep(seed, q: int, shape, width: int, device):
-    """The FFN's keep mask [rows, width] over its hidden units, or None at
-    q 0: the plain path's draw (same seed, shape and split dim), so under
-    tensor parallelism this rank's columns of the global width's draw."""
+def _ffn_bits(seed, q: int, shape, width: int, device):
+    """The FFN's dropout bits [rows, width] over its hidden units (keep iff
+    bits >= q), or None at q 0: the plain path's draw (same seed, shape and
+    split dim), so under tensor parallelism this rank's columns of the
+    global width's draw, a view whose rows lie the global width apart."""
     if q <= 0:
         return None
-    return dropout_keep(seed, (*shape[:-1], width), q, device,
+    return dropout_bits(seed, (*shape[:-1], width), device,
                         split_dim=-1).reshape(-1, width)
 
 
@@ -140,8 +133,11 @@ class _FfnCore(torch.autograd.Function):
     activation-sized tensor: for ReLU the dropped activation a (where kept,
     a > 0 ⟺ h1 > 0, and dropped elements get a zero cotangent either way,
     so the mask is not a residual); for GELU the pre-activation h1, from
-    which it takes GELU's derivative, redrawing the mask. The forward scales
-    by the bf16-rounded scale; the weight gradients stay fp32 (JAX's
+    which it takes GELU's derivative, redrawing the bits. The passes between
+    the products (bias, rounding, activation, dropout; GELU's derivative
+    and dw2's operand) are ops/ffn_epilogue.py's, one kernel each way on
+    the card. The forward
+    scales by the bf16-rounded scale; the weight gradients stay fp32 (JAX's
     einsums). Under a mesh that shards the model (w1 [F/tp, H], w2 [H,
     F/tp]) the fp32 partials of a·w2ᵀ and of dx are summed over 'model'
     before their roundings. k2: the ReLU backward takes (dh1, db2, db1) from
@@ -154,11 +150,10 @@ class _FfnCore(torch.autograd.Function):
             raise ValueError(f"K2's epilogue is the ReLU's, not {activation}'s")
         x2 = x.reshape(-1, x.shape[-1])
         w1c, w2c = w1.to(x.dtype), w2.to(x.dtype)
-        h1 = (_mm_f32(x2, w1c.t()) + b1.float()).to(x.dtype)
-        a = ACTIVATIONS[activation](h1)
-        keep = _ffn_keep(seed, q, x.shape, a.shape[-1], x.device)
-        if keep is not None:
-            a = _drop(a, keep, q)
+        p1 = _mm_f32(x2, w1c.t())
+        bits = _ffn_bits(seed, q, x.shape, p1.shape[-1], x.device)
+        a, h1 = ffn_epi_fwd(p1, b1, bits, q, activation, x.dtype)
+        del p1, bits
         y = reduce_model_(_mm_f32(a, w2c.t()), mesh, "forward")
         y = (y + b2.float()).to(x.dtype)
         ctx.save_for_backward(x2, a if activation == "relu" else h1, w1c, w2c)
@@ -176,23 +171,13 @@ class _FfnCore(torch.autograd.Function):
             dw2 = _mm_f32(dy2.t(), r)
         else:
             db2 = dy2.float().sum(0)
-            if ctx.activation == "relu":
-                dw2 = _mm_f32(dy2.t(), r)
-                da = _mm_f32(dy2, w2c).to(dy.dtype)
-                dh1 = torch.where(r > 0, da * _bf16_value(scale), 0)
-            else:
-                keep = _ffn_keep(ctx.seed, q, ctx.shape, r.shape[-1],
-                                 r.device)
-                a = F.gelu(r)
-                dw2 = _mm_f32(dy2.t(), a if keep is None else
-                              _drop(a, keep, q))
-                del a
-                da = _mm_f32(dy2, w2c).to(dy.dtype)
-                if keep is not None:
-                    da = _drop(da, keep, q)
-                del keep
-                dh1 = (da.float() * gelu_grad(r.float())).to(dy.dtype)
-            db1 = dh1.float().sum(0)
+            bits = None if ctx.activation == "relu" else _ffn_bits(
+                ctx.seed, q, ctx.shape, r.shape[-1], r.device)
+            dh1, db1, a = ffn_epi_bwd(_mm_f32(dy2, w2c), r, bits, q,
+                                      ctx.activation)
+            del bits
+            dw2 = _mm_f32(dy2.t(), r if a is None else a)
+            del a
         dw1 = _mm_f32(dh1.t(), x2)
         dx = reduce_model_(_mm_f32(dh1, w1c), ctx.mesh, "backward")
         return (dx.to(dy.dtype).reshape(ctx.shape), dw1, db1, dw2, db2, None,

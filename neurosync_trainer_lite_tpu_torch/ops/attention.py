@@ -49,6 +49,7 @@ sets it; parallel/mesh.py:batch_rows lays the rows out to match).
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -77,9 +78,11 @@ def draw_seed(generator: torch.Generator) -> int:
                              device=generator.device).item())
 
 
+@functools.lru_cache(maxsize=None)
 def _bf16_value(v: float) -> float:
     """v rounded to bf16, as jnp.asarray(v, jnp.bfloat16): bf16 tensors
-    multiplied by it round once, as bf16 * bf16 does in JAX."""
+    multiplied by it round once, as bf16 * bf16 does in JAX. Cached: the
+    few scales a model uses are asked for hundreds of times a step."""
     return float(torch.tensor(v, dtype=torch.bfloat16))
 
 

@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("rope", "fused_attention", "flash_attention", "ffn_bwd",
-           "layer_norm", "lean_attention")
+           "layer_norm", "lean_attention", "ffn_epilogue")
 # -Xptxas -v: the build log lists each kernel's registers and spills
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,6 +41,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _S = ctypes.POINTER(ctypes.c_longlong)  # an operand's three strides
 _ARGTYPES = {
     "rope": {"rope_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
@@ -73,6 +74,11 @@ _ARGTYPES = {
         "lean_attention_bwd": [_P, _S, _P, _S, _P, _S, _P, _S, _P, _S,
                                _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _F,
                                _P]},
+    "ffn_epilogue": {
+        "ffn_epi_fwd": [_P, _P, _P, _L, _I, _F, _I, _P, _P, _I, _I, _P],
+        "ffn_epi_bwd": [_P, _P, _P, _L, _I, _F, _I, _P, _P, _P, _P, _I, _I,
+                        _I, _P],
+        "ffn_epi_bwd_blocks": [_I, _I]},
 }
 
 

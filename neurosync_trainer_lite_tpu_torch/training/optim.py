@@ -52,9 +52,18 @@ def global_norm(grads, sharded=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every gradient (optax.global_norm).
     With a mesh that shards the model, sharded[i] says whether grads[i] is
     this rank's block of a leaf sharded over 'model': those sums of squares
-    are summed over 'model' (one all-reduce), the others counted once."""
+    are summed over 'model' (one all-reduce), the others counted once.
+
+    On the card each leaf's sum of squares is the square of its norm from
+    one multi-tensor pass (torch._foreach_norm): a few launches for all the
+    leaves, where three a leaf left the step paced by the host's dispatch.
+    The CPU keeps a sum a leaf, whose cascade summation its norm kernel
+    lacks."""
     def sq(gs):
-        return sum(torch.sum(torch.square(g.float())) for g in gs)
+        gs = [g.float() for g in gs]
+        if gs and gs[0].is_cuda:
+            return torch.stack(torch._foreach_norm(gs)).square().sum()
+        return sum(torch.sum(torch.square(g)) for g in gs)
 
     if mesh is None or mesh.tp == 1:
         return torch.sqrt(sq(grads))
